@@ -1,0 +1,280 @@
+"""Fused constrained top-k over L2 distances: CUDA kernels + plain versions.
+
+Port of the reference's `kernels/topk_l2.py` (two Pallas TPU kernels)
+and `kernels/ref.py` (their jnp oracles). Each function exists twice
+here:
+
+  * a hand-written CUDA kernel (`csrc/topk_l2.cu`), launched by
+    `leaf_topk_cuda` / `topk_cuda`, each of which counts its launches
+    in `LAUNCHES`;
+  * a plain PyTorch version (`leaf_topk_plain` / `topk_plain`) that
+    repeats the kernel's arithmetic operation by operation — so the two
+    agree bitwise — used for CPU tensors and as the kernel's referent
+    on the card.
+
+`kernels/ops.py` picks one by the tensors' device: CUDA launches the
+kernel or raises, the CPU runs the plain version; nothing falls back.
+
+Selection contract (both functions): candidates are keyed
+lexicographically by (squared distance, slot), where slot is the
+candidate's column (the DFS visit order of the gathered leaf frontier,
+or the arena slot) — exactly the order a stable argsort of the masked
+row gives, ties to the lower slot. A candidate is masked (never kept)
+when its gid is negative or its squared distance exceeds the squared
+radius gate. Outputs are (sq f32, gid i32, slot i32) of width k, with
+(+inf, -1, I32_MAX) where fewer than k candidates pass.
+
+Squared-distance selection with two-pass radius refinement (see the
+reference module for the full argument): the gate is the
+conservatively widened `radius_sq_upper(r)`, and the callers apply the
+exact euclidean gate `sqrt(sq) <= r` to the k survivors only.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import cuda_lib
+
+I32_MAX = int(np.iinfo(np.int32).max)
+
+# conservative relative slack for the squared radius gate: with
+# correctly-rounded f32 ops, sqrt(sq) <= r implies
+# sq < (r*r) * (1 + 1.76 * 2^-23); 2^-20 leaves an 8x margin
+_R2_SLACK = 1.0 + 2.0**-20
+
+# kernel launches since the last reset, per kernel: incremented only
+# where a kernel is launched (never by the plain versions)
+LAUNCHES = {"leaf_topk": 0, "topk_l2": 0}
+
+_LEAF_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_MAX_K = 1024  # the selection list lives in shared memory: 12 B per entry
+# warps (rows or queries) per block, as csrc/topk_l2.cu launches them
+_LEAF_WARPS = 4
+_SCAN_WARPS = 8
+
+
+def radius_sq_upper(r: torch.Tensor) -> torch.Tensor:
+    """Conservatively-rounded squared radius: every candidate whose
+    euclidean f32 distance satisfies `sqrt(sq) <= r` also satisfies
+    `sq <= radius_sq_upper(r)` (same rounding as the reference)."""
+    return r * r * torch.tensor(_R2_SLACK, dtype=r.dtype, device=r.device)
+
+
+def _next_pow2(n: int) -> int:
+    return 1 if n <= 1 else 1 << (int(n) - 1).bit_length()
+
+
+def _blocks(rows: int, per_block: int) -> int:
+    return (rows + per_block - 1) // per_block
+
+
+def block_plan(m: int, n: int, d: int, k: int) -> dict:
+    """Cost of one `topk_l2` launch (`topk_cuda`) as the CUDA kernel runs
+    it: `blocks` is the grid it launches (one warp per query, 8 per
+    block); `hbm_bytes` is what the function must move — q, p, gids and
+    the gate read once, the (Q, k) triple written once; `flops` is the
+    function's arithmetic — per (query, point) pair the expansion-form
+    dot (2 per dim), |q|²+|p|², 2·dot, the subtraction, the clamp and
+    the radius and k-th-key compares, plus one |q|² and one |p|² each
+    (the kernel recomputes |p|² in every block: not counted)."""
+    return {
+        "blocks": _blocks(m, _SCAN_WARPS),
+        "flops": m * n * (2 * d + 5) + 2 * d * (m + n),
+        "hbm_bytes": m * d * 4 + n * d * 4 + n * 4 + m * 4 + m * k * 12,
+    }
+
+
+def leaf_block_plan(r: int, c: int, d: int, k: int, *, itemsize: int = 4) -> dict:
+    """Cost of one leaf launch (`leaf_topk_cuda`) as the CUDA kernel runs
+    it: `blocks` is the grid it launches (one warp per row, 4 per
+    block); `hbm_bytes` is what the function must move — each row's q,
+    its (c, d) candidates at their STORAGE width `itemsize` (4 = f32,
+    2 = bf16, 1 = int8, which also streams a per-candidate f32 scale),
+    its gids and gate read once, the (r, k) triple written once;
+    `flops` is the difference-form arithmetic per candidate (3 per dim,
+    one more for the int8 scale) plus the radius and k-th-key
+    compares."""
+    scaled = itemsize == 1
+    return {
+        "blocks": _blocks(r, _LEAF_WARPS),
+        "flops": r * c * ((4 if scaled else 3) * d + 2),
+        "hbm_bytes": r * d * 4
+        + r * c * d * itemsize
+        + r * c * 4
+        + (r * c * 4 if scaled else 0)
+        + r * 4
+        + r * k * 12,
+    }
+
+
+# -- plain versions -----------------------------------------------------------
+def _select(sq: torch.Tensor, ok: torch.Tensor, gids: torch.Tensor, k: int):
+    """k smallest of each row by the (sq, slot) key over the candidates
+    that pass `ok`; masked lanes carry (+inf, I32_MAX) and sort after
+    every passing one. Two stable sorts give the lexicographic order:
+    first passing-before-masked (column order kept), then by sq."""
+    rows, width = sq.shape
+    first = torch.argsort((~ok).to(torch.uint8), dim=1, stable=True)
+    key = torch.where(ok, sq, torch.full_like(sq, float("inf")))
+    second = torch.argsort(torch.gather(key, 1, first), dim=1, stable=True)
+    order = torch.gather(first, 1, second)[:, :k]
+    kept = torch.gather(ok, 1, order)
+    out_sq = torch.gather(key, 1, order)
+    out_g = torch.where(kept, torch.gather(gids, 1, order), -1).to(torch.int32)
+    out_s = torch.where(kept, order, I32_MAX).to(torch.int32)
+    if out_sq.shape[1] < k:
+        pad = k - out_sq.shape[1]
+        pad_ = torch.nn.functional.pad
+        out_sq = pad_(out_sq, (0, pad), value=float("inf"))
+        out_g = pad_(out_g, (0, pad), value=-1)
+        out_s = pad_(out_s, (0, pad), value=I32_MAX)
+    return out_sq, out_g, out_s
+
+
+def leaf_sq(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Σ_d (q_d − c_d)² in f32, summed in dimension order with every
+    operation rounded on its own (no contraction) — the one reduction
+    order the leaf kernel, the traversal's in-loop leaf evaluation and
+    the rescore pass all share. q broadcasts against c (..., D)."""
+    acc = None
+    for dim in range(c.shape[-1]):
+        t = q[..., dim] - c[..., dim]
+        acc = t * t if acc is None else acc + t * t
+    return acc
+
+
+def _widen(cands: torch.Tensor, cscale) -> torch.Tensor:
+    """f32 image of stored candidates: widen, then (int8) one exact f32
+    multiply by the per-candidate pow2 scale."""
+    c = cands.to(torch.float32)
+    if cscale is not None:
+        c = c * cscale.to(torch.float32)[:, :, None]
+    return c
+
+
+def leaf_topk_plain(q, cands, cgids, r_sq, k: int, cscale=None):
+    """Plain version of the leaf kernel: q (R, D) f32, cands (R, C, D)
+    f32 / bf16 / int8 (+ cscale (R, C) f32), cgids (R, C) i32, r_sq (R,)
+    the already-squared gate. Returns (sq, gid, slot), each (R, k)."""
+    sq = leaf_sq(q[:, None, :], _widen(cands, cscale))
+    ok = (cgids >= 0) & (sq <= r_sq[:, None])
+    return _select(sq, ok, cgids, k)
+
+
+def expansion_sq(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """(Q, N) squared distances in the expansion form
+    (|q|² + |p|²) − 2·q·p, every dot product summed in dimension order
+    with separately rounded operations, clamped at 0 — the topk_l2
+    kernel's arithmetic, step for step."""
+    def dot(a, b):
+        acc = None
+        for dim in range(a.shape[-1]):
+            t = a[..., dim] * b[..., dim]
+            acc = t if acc is None else acc + t
+        return acc
+
+    qn = dot(q, q)[:, None]
+    pn = dot(p, p)[None, :]
+    qp = dot(q[:, None, :], p[None, :, :])
+    return torch.clamp((qn + pn) - 2.0 * qp, min=0.0)
+
+
+def topk_plain(q, p, gids, r_sq, k: int):
+    """Plain version of the shared-points kernel: q (Q, D), p (N, D) f32,
+    gids (N,) i32, r_sq (Q,). Returns (sq, gid, slot), each (Q, k)."""
+    sq = expansion_sq(q, p)
+    g = gids[None, :].expand_as(sq)
+    ok = (g >= 0) & (sq <= r_sq[:, None])
+    return _select(sq, ok, g, k)
+
+
+# -- CUDA launches ------------------------------------------------------------
+def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != shape:
+        raise ValueError(
+            f"{name}: expected {dtype} {shape} on {device}, got "
+            f"{t.dtype} {tuple(t.shape)} on {t.device}"
+        )
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _outputs(rows: int, k: int, device):
+    return (
+        torch.empty((rows, k), dtype=torch.float32, device=device),
+        torch.empty((rows, k), dtype=torch.int32, device=device),
+        torch.empty((rows, k), dtype=torch.int32, device=device),
+    )
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
+def leaf_topk_cuda(q, cands, cgids, r_sq, k: int, cscale=None):
+    """Launch the leaf kernel (same contract as `leaf_topk_plain`)."""
+    device = cands.device
+    rows, c, d = cands.shape
+    code = _LEAF_DTYPE_CODES.get(cands.dtype)
+    if code is None:
+        raise ValueError(f"leaf_topk: unsupported storage {cands.dtype}")
+    if (code == 2) != (cscale is not None):
+        raise ValueError("leaf_topk: int8 candidates need cscale, others not")
+    if not 1 <= k <= _MAX_K:
+        raise ValueError(f"leaf_topk: k={k} outside [1, {_MAX_K}]")
+    _check(q, "q", torch.float32, (rows, d), device)
+    _check(cands, "cands", cands.dtype, (rows, c, d), device)
+    _check(cgids, "cgids", torch.int32, (rows, c), device)
+    _check(r_sq, "r_sq", torch.float32, (rows,), device)
+    if cscale is not None:
+        _check(cscale, "cscale", torch.float32, (rows, c), device)
+    out = _outputs(rows, k, device)
+    lib = cuda_lib.library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.leaf_topk_launch(
+            code, q.data_ptr(), cands.data_ptr(),
+            cscale.data_ptr() if cscale is not None else None,
+            cgids.data_ptr(), r_sq.data_ptr(), rows, c, d, k,
+            *(o.data_ptr() for o in out), stream,
+        )
+    _raise_on(err, "leaf_topk")
+    LAUNCHES["leaf_topk"] += 1
+    return out
+
+
+def _scan_tile(d: int, k: int) -> int:
+    """Points per shared-memory tile of the topk_l2 kernel: up to 1024,
+    fewer for wide points, so a block stays within 48 KB."""
+    budget = 48 * 1024 - _SCAN_WARPS * k * 12  # the warps' selection lists
+    tile = min(1024, budget // ((d + 2) * 4)) // 32 * 32
+    if tile < 32:
+        raise ValueError(f"topk_l2: d={d}, k={k} exceed the shared memory")
+    return tile
+
+
+def topk_cuda(q, p, gids, r_sq, k: int):
+    """Launch the shared-points kernel (same contract as `topk_plain`)."""
+    device = p.device
+    m, d = q.shape
+    n = p.shape[0]
+    if not 1 <= k <= _MAX_K:
+        raise ValueError(f"topk_l2: k={k} outside [1, {_MAX_K}]")
+    _check(q, "q", torch.float32, (m, d), device)
+    _check(p, "p", torch.float32, (n, d), device)
+    _check(gids, "gids", torch.int32, (n,), device)
+    _check(r_sq, "r_sq", torch.float32, (m,), device)
+    out = _outputs(m, k, device)
+    lib = cuda_lib.library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.topk_l2_launch(
+            q.data_ptr(), p.data_ptr(), gids.data_ptr(), r_sq.data_ptr(),
+            m, n, d, k, _scan_tile(d, k),
+            *(o.data_ptr() for o in out), stream,
+        )
+    _raise_on(err, "topk_l2")
+    LAUNCHES["topk_l2"] += 1
+    return out

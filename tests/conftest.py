@@ -17,3 +17,9 @@ import pytest
 def _bound_live_executables_per_module():
     yield
     jax.clear_caches()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (skips where there is none)"
+    )
