@@ -21,6 +21,27 @@ Phases, in order; any failure raises and the script exits non-zero:
                exact brute scan over the live set. The builder's
                determinism (same points twice -> same tree, bitwise) is
                checked first.
+  4. primitives — the public kernel API (`kernels/ops.py`) and the host
+               layer, driven once with the launch counts set to 0 just
+               before and read just after:
+               (a) one ball*-tree over all 500,000 points (the port's
+                   builder); `lower_bounds` of the 5,300 queries against
+                   every node — the paper's D_N — held against the
+                   kernel's plain version and, on 64 sampled rows,
+                   against an f64 D_N as `search_host` computes it;
+               (b) `pairwise_sq_l2` at M = 4,096, N = 65,536, D = 128,
+                   f32 and bf16, against the plain version;
+               (c) `power_iteration` (16 steps) at 500,000 x 2 and at
+                   100,000 x 64 (columns scaled 5, 2, 1, ...): |cos| >
+                   0.999 against the exact eigenvector; `cov_matvec` run
+                   twice gives the same y bitwise;
+               (d) the quickstart's 20,000 points built by the host
+                   builder (`core.build(backend="host")`), searched on the
+                   card by `core.search`: ids equal to `brute`, node
+                   counts equal to `search_host` on 100 queries, and the
+                   constrained vs knn-then-filter node counts.
+               Then kernel / plain / library times and bounds of both
+               primitive kernels.
 
 The last lines of standard output are a `{"kernels": [...]}` JSON
 object, the card's name and power limit, and `{"ok": true, ...}`.
@@ -38,14 +59,26 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet): device memory 3.35 TB/s, FP32 outside
-# the tensor cores 67 TFLOP/s — the rates the bounds below divide by
+# H100 SXM peaks (NVIDIA data sheet, dense): device memory 3.35 TB/s; f32
+# outside the tensor cores 67 TFLOP/s; bf16 on the tensor cores with f32
+# sums 989 TFLOP/s — the rates the bounds below divide by. A bf16 × bf16
+# product is exact in f32, so the tensor cores compute the same function
+# where both operands are bf16; any f32 operand takes the f32 rate.
 HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
+PEAK_FLOP_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
 
 LEAF_SRC = "src/repro_torch/kernels/csrc/topk_l2.cu"
 LEAF_REPLACES = "src/repro/kernels/topk_l2.py:459"   # _leaf_kernel
 SCAN_REPLACES = "src/repro/kernels/topk_l2.py:249"   # _kernel
+PAIR_SRC = "src/repro_torch/kernels/csrc/pairwise_l2.cu"
+PAIR_REPLACES = "src/repro/kernels/pairwise_l2.py:77"  # _kernel
+COV_SRC = "src/repro_torch/kernels/csrc/cov_matvec.cu"
+COV_REPLACES = "src/repro/kernels/cov_matvec.py:25"    # _kernel
+# phase 4's shapes: the wide pairwise (M, N, D), the wide power iteration
+# (N, D), and the host path's point count (the quickstart's)
+PAIR_WIDE = (4096, 65536, 128)
+COV_WIDE = (100_000, 64)
+HOST_POINTS = 20_000
 
 
 def log(*a):
@@ -74,6 +107,16 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def _bound(plan, operands=torch.float32) -> tuple:
+    """(bound ms, what bounds it) of a launch plan: the larger of its
+    bytes over the memory rate and its operations over the peak rate of
+    the type its products take (`operands`: bf16 only where every
+    operand of a product is bf16)."""
+    t_bytes = plan["hbm_bytes"] / HBM_BYTES_PER_S
+    t_ops = plan["flops"] / PEAK_FLOP_PER_S[operands]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 # -- phase 2: kernels vs plain versions ----------------------------------------
@@ -135,12 +178,10 @@ def check_leaf(dev, gen, rows=5300 * 4, c=2048, d=2, kp=18):
         # their storage width (+ int8 scales), gids and gate read once,
         # the (R, k') triple written once (topk_l2.leaf_block_plan)
         plan = tk.leaf_block_plan(rows, c, d, kp, itemsize=itemsize)
-        t_bytes = plan["hbm_bytes"] / HBM_BYTES_PER_S
-        t_ops = plan["flops"] / FP32_FLOP_PER_S
-        bound_ms = 1e3 * max(t_bytes, t_ops)
+        bound_ms, bound_by = _bound(plan)
         variants[name] = {
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_by": bound_by,
             "hbm_bytes": plan["hbm_bytes"], "max_abs_err": err,
         }
         log(f"kernel leaf_topk[{name}] R={rows} C={c} D={d} k'={kp}: "
@@ -181,17 +222,13 @@ def check_scan(dev, gen, pts, queries, r, nq=5300, n=4096, k=10):
     library_ms = time_ms(library, reps=10)
     # per pair: the expansion form and two compares (gate, k-th key);
     # inputs read once, the (Q, k) triple written once
-    plan = tk.block_plan(nq, n, 2, k)
-    t_bytes = plan["hbm_bytes"] / HBM_BYTES_PER_S
-    t_ops = plan["flops"] / FP32_FLOP_PER_S
-    bound_ms = 1e3 * max(t_bytes, t_ops)
+    bound_ms, bound_by = _bound(tk.block_plan(nq, n, 2, k))
     log(f"kernel topk_l2 Q={nq} N={n} D=2 k={k}: kernel_ms={ms:.4f} "
         f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} "
         f"library_ms={library_ms:.4f} max_abs_err={err}")
     return {
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": library_ms, "max_abs_err": err,
+        "bound_by": bound_by, "library_ms": library_ms, "max_abs_err": err,
     }
 
 
@@ -431,6 +468,224 @@ def run_main(dev, pts, queries, r):
     return launches
 
 
+# -- phase 4: the kernel primitives and the host layer ---------------------------
+def _expansion_tol(q, p) -> float:
+    """Cancellation bound of the expansion form on the square:
+    8·2⁻²⁴·(max|q|² + max|p|²)."""
+    qf, pf = q.float(), p.float()
+    return 8 * 2.0**-24 * float((qf * qf).sum(1).max() + (pf * pf).sum(1).max())
+
+
+def check_pairwise(name, q, p, reps=10):
+    """Kernel vs plain version at one shape; times and bound."""
+    from repro_torch.kernels import pairwise_l2 as pw
+
+    got = pw.pairwise_cuda(q, p)
+    want = pw.pairwise_plain(q, p)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    del got, want
+    tol = _expansion_tol(q, p)
+    if err > tol:
+        raise AssertionError(f"pairwise_sq_l2[{name}] err {err} > {tol}")
+    ms = time_ms(lambda: pw.pairwise_cuda(q, p), reps=reps)
+    plain_ms = time_ms(lambda: pw.pairwise_plain(q, p), reps=2, warmup=1)
+    qf, pf = q.float(), p.float()
+    library_ms = time_ms(lambda: torch.cdist(
+        qf, pf, compute_mode="use_mm_for_euclid_dist"), reps=reps)
+    plan = pw.block_plan(q.shape[0], p.shape[0], q.shape[1], q.element_size())
+    both_bf16 = q.dtype == p.dtype == torch.bfloat16
+    bound_ms, bound_by = _bound(
+        plan, torch.bfloat16 if both_bf16 else torch.float32)
+    torch.cuda.empty_cache()
+    log(f"kernel pairwise_sq_l2[{name}] M={q.shape[0]} N={p.shape[0]} "
+        f"D={q.shape[1]}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"bound_ms={bound_ms:.5f} ({bound_by}) library_ms={library_ms:.4f} "
+        f"max_abs_err={err} (tol {tol:.3e})")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "max_abs_err": err, "tol": tol}
+
+
+def check_cov(name, x, reps=50):
+    """Kernel vs plain version at one shape, bitwise reproducibility;
+    times and bound."""
+    from repro_torch.kernels import cov_matvec as cm
+
+    n, d = x.shape
+    mean = x.float().mean(0)
+    w = torch.randn(d, generator=torch.Generator(device=x.device).manual_seed(5),
+                    device=x.device)
+    w = w / torch.linalg.vector_norm(w)
+    y1 = cm.cov_matvec_cuda(x, mean, w)
+    y2 = cm.cov_matvec_cuda(x, mean, w)
+    want = cm.cov_matvec_plain(x, mean, w)
+    if not torch.equal(y1, y2):
+        raise AssertionError(f"cov_matvec[{name}] differs between two runs")
+    diff = (y1 - want).abs()
+    err = float(diff.max())
+    # per column, the f32 bound of the longest chain of additions in the
+    # kernel's sum: 2·chain·2⁻²⁴·(|Xc|ᵀ(|Xc||w|))
+    rows, blocks, groups = cm.geometry(n, d)
+    chain = rows // groups + groups.bit_length() + blocks + 8 + d
+    xc = (x.float() - mean).abs()
+    tols = 2 * chain * 2.0**-24 * (xc.T @ (xc @ w.abs()))
+    tol = float(tols.min())
+    if (diff > tols).any():
+        raise AssertionError(f"cov_matvec[{name}] err {err} beyond its bound")
+    ms = time_ms(lambda: cm.cov_matvec_cuda(x, mean, w), reps=reps)
+    plain_ms = time_ms(lambda: cm.cov_matvec_plain(x, mean, w), reps=3, warmup=1)
+    bound_ms, bound_by = _bound(cm.block_plan(n, d, x.element_size()))
+    log(f"kernel cov_matvec[{name}] N={n} D={d}: kernel_ms={ms:.4f} "
+        f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by}) "
+        f"max_abs_err={err} (tol {tol:.3e}) two runs bitwise equal")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "max_abs_err": err,
+            "tol": tol}
+
+
+def check_dn_f64(lb, q, tree, rows):
+    """lower_bounds on sampled rows vs D_N in f64, as search_host
+    computes it: max(0, ||q - c|| - radius). Tolerance per entry: the
+    expansion form's bound E on the square, carried through the sqrt
+    (min(√E, E/d)), plus the rounding of the f32 sqrt and subtraction."""
+    qh = q[rows].double().cpu().numpy()
+    c = np.asarray(tree.center, np.float32).astype(np.float64)
+    rad = np.asarray(tree.radius, np.float32).astype(np.float64)
+    d64 = np.sqrt(((qh[:, None, :] - c[None]) ** 2).sum(-1))
+    want = np.maximum(d64 - rad[None], 0.0)
+    got = lb[rows].double().cpu().numpy()
+    e = 8 * 2.0**-24 * ((qh * qh).sum(1)[:, None] + (c * c).sum(1)[None])
+    tol = np.minimum(np.sqrt(e), e / np.maximum(d64, 1e-30))
+    tol = tol + 2.0**-22 * (d64 + rad[None])
+    err = np.abs(got - want)
+    if not (err <= tol).all():
+        i = np.unravel_index(np.argmax(err - tol), err.shape)
+        raise AssertionError(f"lower_bounds vs f64 D_N: {err[i]} > {tol[i]}")
+    return float(err.max())
+
+
+def host_path(dev):
+    """(d): host-built tree, searched on the card, held to brute and to
+    search_host's node counts; Table 2's node counts."""
+    from repro_torch import core
+    from repro_torch.core import TreeSpec, brute, search_host
+    from repro_torch.data.synthetic import highleyman, uniform_queries
+
+    pts = highleyman(HOST_POINTS, seed=0).astype(np.float32)
+    queries = uniform_queries(pts, 100, seed=1).astype(np.float32)
+    k, r = 10, 0.5
+    t0 = time.perf_counter()
+    tree = core.build(pts, TreeSpec.ballstar(leaf_size=32), backend="host")
+    t_build = time.perf_counter() - t0
+    res = core.search.search(tree, queries, k, r, device=dev)
+    ids = res.indices.cpu().numpy()
+    visited = res.nodes_visited.cpu().numpy()
+    p64 = pts.astype(np.float64)
+    host_c, host_f = [], []
+    for i, q in enumerate(queries):
+        bi, _ = brute.constrained_knn(p64, q, k, r)
+        got = ids[i][ids[i] >= 0]
+        if not np.array_equal(got, bi):
+            raise AssertionError(f"host tree, query {i}: {got} vs brute {bi}")
+        st = search_host.constrained_knn(tree, q, k, r)
+        if int(visited[i]) != st.nodes_visited:
+            raise AssertionError(
+                f"host tree, query {i}: nodes_visited {visited[i]} on the "
+                f"card vs {st.nodes_visited} in search_host")
+        host_c.append(st.nodes_visited)
+        host_f.append(search_host.knn_then_filter(tree, q, k, r).nodes_visited)
+    v_c, v_f = float(np.mean(host_c)), float(np.mean(host_f))
+    out = {"n_points": len(pts), "n_queries": len(queries), "k": k, "r": r,
+           "n_nodes": tree.n_nodes, "build_host_s": t_build,
+           "nodes_constrained": v_c, "nodes_knn_then_filter": v_f,
+           "node_saving": 1.0 - v_c / v_f}
+    log(f"primitives: host-built tree ({tree.n_nodes} nodes, built in "
+        f"{t_build:.3f} s) searched on the card: 100 x k={k} ids == brute, "
+        f"nodes_visited == search_host; nodes visited constrained {v_c:.1f} "
+        f"vs knn-then-filter {v_f:.1f} (-{100 * out['node_saving']:.1f}%)")
+    return out
+
+
+def run_primitives(dev, pts, queries):
+    from repro_torch.core import TreeSpec, build, first_component_exact
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    tree = build(pts, TreeSpec.ballstar(leaf_size=32), device=dev)
+    log(f"primitives: tree over {len(pts)} points, n_nodes={tree.n_nodes} "
+        f"(built in {time.perf_counter() - t0:.3f} s)")
+    q = torch.from_numpy(queries.astype(np.float32)).to(dev)
+    centers = torch.from_numpy(np.asarray(tree.center, np.float32)).to(dev)
+    radii = torch.from_numpy(np.asarray(tree.radius, np.float32)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    wm, wn, wd = PAIR_WIDE
+    wide = {name: (torch.randn((wm, wd), generator=gen, device=dev).to(dt),
+                   torch.randn((wn, wd), generator=gen, device=dev).to(dt))
+            for name, dt in (("wide_f32", torch.float32),
+                             ("wide_bf16", torch.bfloat16))}
+    x_root = torch.from_numpy(pts.astype(np.float32)).to(dev)
+    scale = torch.ones(COV_WIDE[1], device=dev)
+    scale[0], scale[1] = 5.0, 2.0
+    x_wide = torch.randn(COV_WIDE, generator=gen, device=dev) * scale
+    torch.cuda.synchronize()
+
+    # the path: every call through the public wrappers, counts from 0
+    ops.reset_launch_counts()
+    lb = ops.lower_bounds(q, centers, radii)
+    for a, b in wide.values():
+        ops.pairwise_sq_l2(a, b)
+    w_root = ops.power_iteration(x_root, iters=16, generator=gen)
+    w_wide = ops.power_iteration(x_wide, iters=16, generator=gen)
+    host = host_path(dev)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    log(f"primitives: launches={launches}")
+    for name in ("pairwise_sq_l2", "cov_matvec"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} never launched on the path")
+
+    # (a) the paper shape: lower_bounds vs its plain version and f64
+    if lb.shape != (len(queries), tree.n_nodes) or not torch.isfinite(lb).all():
+        raise AssertionError(f"lower_bounds: bad output {tuple(lb.shape)}")
+    from repro_torch.kernels import pairwise_l2 as pw
+    plain = torch.clamp(torch.sqrt(pw.pairwise_plain(q, centers))
+                        - radii[None, :], min=0.0)
+    lb_err = float((lb - plain).abs().max())
+    del plain
+    # an error e in the square moves the root by at most √e
+    if lb_err > _expansion_tol(q, centers) ** 0.5:
+        raise AssertionError(f"lower_bounds vs plain: err {lb_err}")
+    rows = np.random.default_rng(2).choice(len(queries), 64, replace=False)
+    dn_err = check_dn_f64(lb, q, tree, torch.from_numpy(rows).to(dev))
+    pruned = float((lb > 0).float().mean())
+    del lb
+    torch.cuda.empty_cache()
+    log(f"primitives: lower_bounds {len(queries)} x {tree.n_nodes} "
+        f"(~{4 * len(queries) * tree.n_nodes / 1e9:.2f} GB): max |kernel - "
+        f"plain| {lb_err}, max |f32 - f64 D_N| on 64 rows {dn_err}; "
+        f"{100 * pruned:.1f}% of (query, node) pairs have D_N > 0")
+    pair = {"paper": check_pairwise("paper", q, centers)}
+    for name, (a, b) in wide.items():
+        pair[name] = check_pairwise(name, a, b)
+
+    # (c) power iteration at both shapes
+    cos = {}
+    for name, x, w in (("root", x_root, w_root), ("wide", x_wide, w_wide)):
+        we = first_component_exact(x.cpu().numpy())
+        cos[name] = abs(float(np.dot(w.double().cpu().numpy(), we)))
+        if not cos[name] > 0.999:
+            raise AssertionError(f"power_iteration[{name}] |cos| {cos[name]}")
+    log(f"primitives: power_iteration |cos| vs first_component_exact {cos}")
+    cov = {"root": check_cov("root", x_root), "wide": check_cov("wide", x_wide)}
+    log("primitives: summary " + json.dumps({
+        "n_nodes": tree.n_nodes, "lower_bounds_err_vs_plain": lb_err,
+        "lower_bounds_err_vs_f64": dn_err, "pairwise": pair,
+        "power_iteration_cos": cos, "cov_matvec": cov, "host_path": host,
+        "launches": launches}))
+    return launches, pair, cov
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke needs a card",
@@ -460,6 +715,7 @@ def main() -> int:
     scan = check_scan(dev, gen, pts, queries, r)
 
     launches = run_main(dev, pts, queries, r)
+    prim_launches, pair, cov = run_primitives(dev, pts, queries)
 
     bf = leaf_variants["bfloat16"]
     kernels = [
@@ -478,6 +734,19 @@ def main() -> int:
             "bound_by": scan["bound_by"], "library_ms": scan["library_ms"],
         },
     ]
+    for name, src, replaces, res, main_key in (
+        ("pairwise_sq_l2", PAIR_SRC, PAIR_REPLACES, pair, "paper"),
+        ("cov_matvec", COV_SRC, COV_REPLACES, cov, "root"),
+    ):
+        m = res[main_key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": prim_launches[name],
+            "max_abs_err": max(v["max_abs_err"] for v in res.values()),
+            "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "library_ms": m["library_ms"], "variants": res,
+        })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

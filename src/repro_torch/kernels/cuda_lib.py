@@ -2,7 +2,8 @@
 
 The sources have a plain C interface, so they are compiled by `nvcc` into
 one shared library and bound with ctypes — no PyTorch headers, a build of
-seconds. The build happens at first use, into
+seconds: one `nvcc` per source, all started together, then one link. The
+build happens at first use, into
 ``<repo>/build/repro_torch/<hash of the sources>/`` (listed in
 `.gitignore`; `REPRO_TORCH_BUILD_DIR` overrides the root), so a changed
 source never loads a stale library. Nothing here runs at import time:
@@ -20,7 +21,7 @@ import threading
 import time
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("topk_l2.cu",)
+_SOURCES = ("topk_l2.cu", "pairwise_l2.cu", "cov_matvec.cu")
 _ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _LOCK = threading.Lock()
@@ -57,6 +58,22 @@ def library_path() -> pathlib.Path:
     return _build_root() / _digest() / "librepro_torch_kernels.so"
 
 
+def _run_all(cmds):
+    """Run the commands concurrently; raise on the first that failed."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True)
+        for c in cmds
+    ]
+    outs = [p.communicate() for p in procs]
+    for cmd, proc, (out, err) in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}\n{err}"
+            )
+    return "".join(err for _, err in outs)
+
+
 def build() -> pathlib.Path:
     """Compile the sources unless a library for their hash exists."""
     out = library_path()
@@ -64,26 +81,34 @@ def build() -> pathlib.Path:
         BUILD_INFO.update(seconds=0.0, path=str(out), cached=True)
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [
-        _nvcc(), _ARCH, "-std=c++17", "-O3", "-fmad=false", "-shared",
-        "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
-        *[str(_CSRC / s) for s in _SOURCES],
-    ]
+    tag = f"{os.getpid()}.tmp"
+    objs = [out.parent / f"{pathlib.Path(s).stem}.{tag}.o" for s in _SOURCES]
+    flags = [_ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC"]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
+    try:
+        ptxas = _run_all([
+            [_nvcc(), *flags, "-Xptxas", "-v", "-c", "-o", str(o), str(_CSRC / s)]
+            for s, o in zip(_SOURCES, objs)
+        ])
+        tmp = out.with_suffix(f".{tag}")
+        _run_all([[_nvcc(), _ARCH, "-shared", "-o", str(tmp), *map(str, objs)]])
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     BUILD_INFO.update(
         seconds=time.perf_counter() - t0,
         path=str(out),
         cached=False,
-        ptxas=proc.stderr,
+        ptxas=ptxas,
     )
     return out
+
+
+def raise_on(err: int, name: str) -> None:
+    """Raise if a launch function returned a CUDA error (0 = launched)."""
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
 
 def library() -> ctypes.CDLL:
@@ -101,5 +126,9 @@ def library() -> ctypes.CDLL:
                 p, p, p, p, i, i, i, i, i, p, p, p, p
             ]
             lib.topk_l2_launch.restype = i
+            lib.pairwise_sq_l2_launch.argtypes = [i, p, p, i, i, i, p, p]
+            lib.pairwise_sq_l2_launch.restype = i
+            lib.cov_matvec_launch.argtypes = [i, p, p, p, i, i, i, i, p, p, p]
+            lib.cov_matvec_launch.restype = i
             _LIB = lib
         return _LIB

@@ -5,30 +5,48 @@ a CUDA device and runs the kernel's plain PyTorch version when they lie
 on the CPU — the choice is made by the tensors' device alone, and a
 CUDA launch that fails raises: nothing falls back. Each call is billed
 to the obs registry (`_account`) from the CUDA kernel's own launch plan
-(`topk_l2.block_plan` / `leaf_block_plan`: the grid it launches, the
-bytes the function moves, the arithmetic it does), whichever version
-runs.
+(`topk_l2.block_plan` / `leaf_block_plan`, `pairwise_l2.block_plan`,
+`cov_matvec.block_plan`: the grid it launches, the bytes the function
+moves, the arithmetic it does), whichever version runs.
 
-`launch_counts()` reports how often each CUDA kernel was launched (the
-plain versions never count): the evidence that a run went through the
-kernels.
+Two families, as in the reference's `kernels/ops.py`:
+
+  * the constrained top-k scans of the read path (`leaf_topk_l2_raw`,
+    `leaf_topk_l2`, `topk_l2`);
+  * the kernel primitives (`pairwise_sq_l2`, `pairwise_l2`,
+    `lower_bounds` — the paper's pruning bound D_N of §4.2 batched over
+    queries × nodes —, `cov_matvec` and `power_iteration`, the PCA
+    direction of §3.2).
+
+`launch_counts()` reports how often each CUDA kernel was launched on the
+device (`cov_matvec` launches two per call; the plain versions never
+count): the evidence that a run went through the kernels.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import obs
+from . import cov_matvec as _cm
+from . import pairwise_l2 as _pw
 from . import quantize
 from . import topk_l2 as _tk
 
+_COUNTERS = (_tk.LAUNCHES, _pw.LAUNCHES, _cm.LAUNCHES)
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
 
 def launch_counts() -> dict:
-    return dict(_tk.LAUNCHES)
+    out = {}
+    for counts in _COUNTERS:
+        out.update(counts)
+    return out
 
 
 def reset_launch_counts() -> None:
-    for name in _tk.LAUNCHES:
-        _tk.LAUNCHES[name] = 0
+    for counts in _COUNTERS:
+        for name in counts:
+            counts[name] = 0
 
 
 def _on_cuda(t: torch.Tensor, name: str) -> bool:
@@ -145,3 +163,74 @@ def topk_l2(q, p, gids, r, k: int):
     else:
         sq, g, _ = _tk.topk_plain(*args)
     return _refine(sq, g, rb)
+
+
+# -- kernel primitives ---------------------------------------------------------
+def _kernel_dtype(*ts):
+    """The inputs as the kernels take them: f32 or bf16 kept when they
+    all share it, anything else (f64, f16, mixed) widened to f32."""
+    if ts[0].dtype in _KERNEL_DTYPES and all(t.dtype == ts[0].dtype for t in ts):
+        return ts
+    return tuple(t.to(torch.float32) for t in ts)
+
+
+def pairwise_sq_l2(q, p):
+    """Squared L2 distance matrix (M, N) f32 of q (M, D) and p (N, D), in
+    the expansion form |q|² + |p|² − 2·q·p clamped at 0."""
+    q, p = _kernel_dtype(q, p)
+    m, d = q.shape
+    n = p.shape[0]
+    if obs.REGISTRY.enabled:
+        _account("pairwise_sq_l2", _pw.block_plan(m, n, d, q.element_size()))
+    if _on_cuda(p, "pairwise_sq_l2"):
+        return _pw.pairwise_cuda(q.contiguous(), p.contiguous())
+    return _pw.pairwise_plain(q, p)
+
+
+def pairwise_l2(q, p):
+    """Euclidean distance matrix (M, N) f32."""
+    return torch.sqrt(pairwise_sq_l2(q, p))
+
+
+def lower_bounds(q, centers, radii):
+    """Ball lower bounds max(0, ||q-c|| - radius): the pruning quantity
+    D_N of the paper's search (§4.2), batched over queries × nodes."""
+    d = pairwise_l2(q, centers)
+    return torch.clamp(d - radii.to(torch.float32)[None, :], min=0.0)
+
+
+def cov_matvec(x, mean, w):
+    """Fused centered-covariance matvec (one power-iteration step):
+    y = (X-μ)ᵀ((X-μ)w), (D,) f32, with x read once at its width."""
+    (x,) = _kernel_dtype(x)
+    n, d = x.shape
+    if obs.REGISTRY.enabled:
+        _account("cov_matvec", _cm.block_plan(n, d, x.element_size()))
+    mean = mean.to(torch.float32).contiguous()
+    w = w.to(torch.float32).contiguous()
+    if _on_cuda(x, "cov_matvec"):
+        return _cm.cov_matvec_cuda(x.contiguous(), mean, w)
+    return _cm.cov_matvec_plain(x, mean, w)
+
+
+def power_iteration(x, iters: int = 16, generator=None):
+    """First principal component of x (N, D) using the fused kernel.
+
+    The start vector is a standard normal draw from `generator` (a
+    `torch.Generator` on x's device; default: a fresh one seeded 0),
+    normalised. Each step keeps the reference's update
+    `where(|v| > 1e-12, v / max(|v|, 1e-30), w)` on the device, so the
+    loop never waits for the host, and a degenerate x (every row equal)
+    returns the start vector."""
+    (x,) = _kernel_dtype(x)
+    d = x.shape[1]
+    mean = x.mean(dim=0)
+    if generator is None:
+        generator = torch.Generator(device=x.device).manual_seed(0)
+    w = torch.randn(d, generator=generator, device=x.device, dtype=torch.float32)
+    w = w / torch.linalg.vector_norm(w)
+    for _ in range(iters):
+        v = cov_matvec(x, mean, w)
+        nrm = torch.linalg.vector_norm(v)
+        w = torch.where(nrm > 1e-12, v / torch.clamp(nrm, min=1e-30), w)
+    return w

@@ -208,11 +208,6 @@ def _outputs(rows: int, k: int, device):
     )
 
 
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-
-
 def leaf_topk_cuda(q, cands, cgids, r_sq, k: int, cscale=None):
     """Launch the leaf kernel (same contract as `leaf_topk_plain`)."""
     device = cands.device
@@ -240,7 +235,7 @@ def leaf_topk_cuda(q, cands, cgids, r_sq, k: int, cscale=None):
             cgids.data_ptr(), r_sq.data_ptr(), rows, c, d, k,
             *(o.data_ptr() for o in out), stream,
         )
-    _raise_on(err, "leaf_topk")
+    cuda_lib.raise_on(err, "leaf_topk")
     LAUNCHES["leaf_topk"] += 1
     return out
 
@@ -275,6 +270,6 @@ def topk_cuda(q, p, gids, r_sq, k: int):
             m, n, d, k, _scan_tile(d, k),
             *(o.data_ptr() for o in out), stream,
         )
-    _raise_on(err, "topk_l2")
+    cuda_lib.raise_on(err, "topk_l2")
     LAUNCHES["topk_l2"] += 1
     return out

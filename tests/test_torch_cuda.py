@@ -6,14 +6,17 @@ Marked `cuda`: skipped where there is no card. On a machine with one
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 The plain versions repeat each kernel's arithmetic operation by
-operation (explicitly rounded, uncontracted f32), so sq, gid and slot
-must all be equal — no tolerance.
+operation (explicitly rounded, uncontracted f32, in the kernel's order
+of sums), so every output must be equal — sq, gid and slot of the top-k
+kernels, the pairwise matrix, the covariance matvec — no tolerance.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import quantize
+from repro_torch.kernels import cov_matvec as cm
+from repro_torch.kernels import ops, quantize
+from repro_torch.kernels import pairwise_l2 as pw
 from repro_torch.kernels import topk_l2 as tk
 
 pytestmark = pytest.mark.cuda
@@ -78,3 +81,46 @@ def test_launches_are_counted(dev):
     tk.leaf_topk_plain(*args, 3)
     assert tk.LAUNCHES["leaf_topk"] == before["leaf_topk"] + 1
     assert tk.LAUNCHES["topk_l2"] == before["topk_l2"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "m,n,d", [(1, 1, 1), (129, 127, 3), (200, 50, 64), (33, 65, 128),
+              (70, 130, 17), (64, 256, 2)],
+)
+def test_pairwise_kernel_equals_plain(dev, dtype, m, n, d):
+    rng = np.random.default_rng(m * 7 + n + d)
+    q = torch.from_numpy(rng.standard_normal((m, d)).astype(np.float32)).to(dtype)
+    p = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(dtype)
+    p[: min(n, m)] = q[: min(n, m)]  # zero distances: the clamp is exercised
+    want = pw.pairwise_plain(q, p)
+    got = pw.pairwise_cuda(q.to(dev), p.to(dev))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "n,d", [(1, 1), (10, 2), (517, 130), (1024, 64), (70_000, 3), (300, 300)]
+)
+def test_cov_matvec_kernel_equals_plain(dev, dtype, n, d):
+    rng = np.random.default_rng(n + d)
+    x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32) + 2.0)
+    x = x.to(dtype)
+    mean = x.to(torch.float32).mean(0)
+    w = torch.from_numpy(rng.standard_normal(d).astype(np.float32))
+    want = cm.cov_matvec_plain(x, mean, w)
+    xd, md, wd = x.to(dev), mean.to(dev), w.to(dev)
+    got = cm.cov_matvec_cuda(xd, md, wd)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(cm.cov_matvec_cuda(xd, md, wd), got)  # no atomics
+
+
+def test_primitive_launches_are_counted(dev):
+    ops.reset_launch_counts()
+    x = torch.rand((300, 3), device=dev)
+    ops.lower_bounds(x, x[:7], torch.ones(7, device=dev))
+    ops.power_iteration(x, iters=5, generator=torch.Generator(device=dev).manual_seed(0))
+    ops.pairwise_sq_l2(x.cpu(), x[:7].cpu())  # plain version: not counted
+    counts = ops.launch_counts()
+    # two device launches per cov_matvec call: partials, then the reduction
+    assert counts["pairwise_sq_l2"] == 1 and counts["cov_matvec"] == 2 * 5
