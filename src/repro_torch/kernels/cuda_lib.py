@@ -91,7 +91,9 @@ def build() -> pathlib.Path:
             for s, o in zip(_SOURCES, objs)
         ])
         tmp = out.with_suffix(f".{tag}")
-        _run_all([[_nvcc(), _ARCH, "-shared", "-o", str(tmp), *map(str, objs)]])
+        # -lcuda: libcuda's tensor-map encoder (TMA) in pairwise_l2.cu
+        _run_all([[_nvcc(), _ARCH, "-shared", "-o", str(tmp), *map(str, objs),
+                   "-lcuda"]])
     finally:
         for o in objs:
             o.unlink(missing_ok=True)
@@ -126,8 +128,12 @@ def library() -> ctypes.CDLL:
                 p, p, p, p, i, i, i, i, i, p, p, p, p
             ]
             lib.topk_l2_launch.restype = i
-            lib.pairwise_sq_l2_launch.argtypes = [i, p, p, i, i, i, p, p]
+            lib.pairwise_sq_l2_launch.argtypes = [i, i, p, p, i, i, i, p, p, p]
             lib.pairwise_sq_l2_launch.restype = i
+            lib.pairwise_sq_l2_scratch_bytes.argtypes = [i, i, i, i, i]
+            lib.pairwise_sq_l2_scratch_bytes.restype = ctypes.c_longlong
+            lib.pairwise_sq_l2_wide_min_d.argtypes = []
+            lib.pairwise_sq_l2_wide_min_d.restype = i
             lib.cov_matvec_launch.argtypes = [i, p, p, p, i, i, i, i, p, p, p]
             lib.cov_matvec_launch.restype = i
             _LIB = lib

@@ -50,7 +50,7 @@ LAUNCHES = {"leaf_topk": 0, "topk_l2": 0}
 _LEAF_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _MAX_K = 1024  # the selection list lives in shared memory: 12 B per entry
 # warps (rows or queries) per block, as csrc/topk_l2.cu launches them
-_LEAF_WARPS = 4
+_LEAF_WARPS = 8
 _SCAN_WARPS = 8
 
 
@@ -87,7 +87,7 @@ def block_plan(m: int, n: int, d: int, k: int) -> dict:
 
 def leaf_block_plan(r: int, c: int, d: int, k: int, *, itemsize: int = 4) -> dict:
     """Cost of one leaf launch (`leaf_topk_cuda`) as the CUDA kernel runs
-    it: `blocks` is the grid it launches (one warp per row, 4 per
+    it: `blocks` is the grid it launches (one warp per row, 8 per
     block); `hbm_bytes` is what the function must move — each row's q,
     its (c, d) candidates at their STORAGE width `itemsize` (4 = f32,
     2 = bf16, 1 = int8, which also streams a per-candidate f32 scale),

@@ -8,7 +8,10 @@ Marked `cuda`: skipped where there is no card. On a machine with one
 The plain versions repeat each kernel's arithmetic operation by
 operation (explicitly rounded, uncontracted f32, in the kernel's order
 of sums), so every output must be equal — sq, gid and slot of the top-k
-kernels, the pairwise matrix, the covariance matvec — no tolerance.
+kernels, the pairwise matrix on its narrow route, the covariance matvec
+— no tolerance. The one exception is the pairwise kernel's wide route
+(D >= pairwise_l2.WIDE_MIN_D), whose cross term runs on the tensor
+cores: it is held to the expansion form's ceiling instead.
 """
 import numpy as np
 import pytest
@@ -74,6 +77,58 @@ def test_topk_kernel_equals_plain(dev, n, d, k):
         assert torch.equal(x.cpu(), y)
 
 
+def _leaf_equal(dev, args, cscale, k):
+    want = tk.leaf_topk_plain(*args, k, cscale=cscale)
+    got = tk.leaf_topk_cuda(
+        *[a.to(dev) for a in args], k,
+        cscale=None if cscale is None else cscale.to(dev),
+    )
+    for x, y in zip(got, want):
+        assert torch.equal(x.cpu(), y)
+    return want
+
+
+@pytest.mark.parametrize("sdt", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("k", [32, 33])
+def test_leaf_kernel_list_boundary(dev, sdt, k):
+    """k' = 32 takes the register list, 33 the shared-memory list; the
+    vector path (D = 2) and the element path (D = 3) under both."""
+    for d in (2, 3):
+        args, cscale = _leaf_case(sdt, rows=40, c=500, d=d, seed=k)
+        _leaf_equal(dev, args, cscale, k)
+
+
+@pytest.mark.parametrize("sdt", ["float32", "bfloat16", "int8"])
+def test_leaf_kernel_main_path_shape(dev, sdt):
+    """C = 2,048 at D = 2, the main path's shape: the vector path."""
+    args, cscale = _leaf_case(sdt, rows=50, c=2048, d=2, seed=7)
+    _leaf_equal(dev, args, cscale, 18)
+
+
+@pytest.mark.parametrize("sdt", ["float32", "bfloat16", "int8"])
+def test_leaf_kernel_edge_rows(dev, sdt):
+    """A row with every candidate masked, rows of duplicated candidates
+    (equal sq, ordered by slot), C = 1, and rows whose bases alternate
+    between 16-byte aligned and not (C = 70 at D = 2) in one grid."""
+    args, cscale = _leaf_case(sdt, rows=9, c=70, d=2, seed=11)
+    q, cands, cg, r_sq = args
+    cg[0] = -1                        # every candidate masked by gid
+    r_sq[1] = -1.0                    # every candidate masked by the gate
+    cands[2] = cands[2, :1]           # one point, 70 times: equal sq
+    cg[2] = torch.arange(1000, 1070, dtype=torch.int32)
+    r_sq[2] = float("inf")
+    cands[3, 35:] = cands[3, :35]     # each point twice
+    if cscale is not None:
+        cscale[2] = cscale[2, :1]
+        cscale[3, 35:] = cscale[3, :35]
+    want = _leaf_equal(dev, (q, cands, cg, r_sq), cscale, 18)
+    assert (want[1][0] == -1).all() and (want[1][1] == -1).all()
+    assert torch.equal(want[2][2][:18], torch.arange(18, dtype=torch.int32))
+    for k in (1, 5):
+        args1, cscale1 = _leaf_case(sdt, rows=33, c=1, d=2, seed=k)
+        _leaf_equal(dev, args1, cscale1, k)
+
+
 def test_launches_are_counted(dev):
     args, _ = _leaf_case("float32", rows=4, c=40)
     before = dict(tk.LAUNCHES)
@@ -83,19 +138,60 @@ def test_launches_are_counted(dev):
     assert tk.LAUNCHES["topk_l2"] == before["topk_l2"]
 
 
+def _expansion_tol(q, p) -> float:
+    """The expansion form's ceiling 8·2⁻²⁴·(max|q|² + max|p|²)."""
+    qf, pf = q.float(), p.float()
+    return 8 * 2.0**-24 * float((qf * qf).sum(1).max() + (pf * pf).sum(1).max())
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
     "m,n,d", [(1, 1, 1), (129, 127, 3), (200, 50, 64), (33, 65, 128),
-              (70, 130, 17), (64, 256, 2)],
+              (70, 130, 17), (64, 256, 2), (129, 193, 40), (300, 517, 13),
+              (300, 517, 15)],
 )
 def test_pairwise_kernel_equals_plain(dev, dtype, m, n, d):
+    """The narrow route (D < WIDE_MIN_D) equals the plain version
+    bitwise; the wide route's cross term runs on the tensor cores (bf16,
+    or three TF32 products for f32), so it is held to the expansion
+    form's ceiling, against the plain version and against f64."""
     rng = np.random.default_rng(m * 7 + n + d)
     q = torch.from_numpy(rng.standard_normal((m, d)).astype(np.float32)).to(dtype)
     p = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(dtype)
     p[: min(n, m)] = q[: min(n, m)]  # zero distances: the clamp is exercised
     want = pw.pairwise_plain(q, p)
-    got = pw.pairwise_cuda(q.to(dev), p.to(dev))
-    assert torch.equal(got.cpu(), want)
+    got = pw.pairwise_cuda(q.to(dev), p.to(dev)).cpu()
+    if pw.route(d, q.element_size()) == "cuda_core":
+        assert torch.equal(got, want)
+        return
+    tol = _expansion_tol(q, p)
+    q64, p64 = q.double(), p.double()
+    exact = ((q64[:, None, :] - p64[None, :, :]) ** 2).sum(-1)
+    assert float((got - want).abs().max()) <= tol
+    assert float((got.double() - exact).abs().max()) <= tol
+    assert (got >= 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pairwise_routes(dev, dtype):
+    """Both routes at one small D (the route-threshold measurement forces
+    them so), the route names, and WIDE_MIN_D == the source's."""
+    from repro_torch.kernels import cuda_lib
+
+    assert cuda_lib.library().pairwise_sq_l2_wide_min_d() == pw.WIDE_MIN_D
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.standard_normal((300, 7)).astype(np.float32)).to(dtype)
+    p = torch.from_numpy(rng.standard_normal((1000, 7)).astype(np.float32)).to(dtype)
+    want = pw.pairwise_plain(q, p)
+    wide = pw.route(pw.WIDE_MIN_D, q.element_size())
+    assert wide == ("wgmma_bf16" if dtype == torch.bfloat16 else "wgmma_tf32x3")
+    narrow = pw.pairwise_cuda(q.to(dev), p.to(dev), route_name="cuda_core")
+    assert torch.equal(narrow.cpu(), want)
+    got = pw.pairwise_cuda(q.to(dev), p.to(dev), route_name=wide).cpu()
+    assert float((got - want).abs().max()) <= _expansion_tol(q, p)
+    with pytest.raises(ValueError):
+        pw.pairwise_cuda(q.to(dev)[:, :0].contiguous(), p.to(dev)[:, :0].contiguous(),
+                         route_name="cuda_core")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -158,7 +158,14 @@ def test_power_iteration_degenerate_returns_start_vector():
 
 def test_plans_and_launch_counts():
     plan = pw.block_plan(130, 65, 3, itemsize=2)
-    assert plan["grid"] == (2, 3) and plan["blocks"] == 6
+    assert plan["route"] == "cuda_core" and plan["tile"] == (64, 256)
+    assert plan["grid"] == (3,) and plan["blocks"] == 3
+    wide = pw.block_plan(4096, 65536, pw.WIDE_MIN_D, itemsize=4)
+    assert wide["route"] == "wgmma_tf32x3"
+    # the prep pass (one row of [q; p] per thread), then 32 x 512 tiles
+    assert wide["grid"] == ((4096 + 65536) // 256, 32 * 512)
+    assert pw.block_plan(3, 5, 128, itemsize=2)["route"] == "wgmma_bf16"
+    assert pw.route(pw.WIDE_MIN_D - 1) == "cuda_core"
     assert plan["flops"] == 2 * 130 * 65 * 3 + 2 * (130 + 65) * 3
     assert plan["hbm_bytes"] == (130 + 65) * 3 * 2 + 4 * 130 * 65
     rows, blocks, groups = cm.geometry(500_000, 2)
