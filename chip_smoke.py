@@ -8,9 +8,11 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. card    — the card's name and power limit (nvidia-smi), then the
                nvcc build of the kernels from `src/repro_torch/kernels/csrc`.
   2. kernels — each hand-written kernel against its plain PyTorch
-               version on the card, at the main path's shapes: ids and
-               slots must be equal, squared distances within the stated
-               tolerance; kernel / plain / library times and the bound.
+               version on the card, at the main path's shapes: the top-k
+               kernels' (sq, gid, slot) bitwise equal — topk_l2 at both
+               of the main path's shapes, Q = 64 (every streaming batch)
+               and Q = 5,300 (the final pass), N = 4,096; kernel / plain /
+               library times and the bound.
   3. main    — the streaming constrained-kNN path at the paper's scale:
                highleyman 2-D, 500,000 points, 5,300 queries, k = 10,
                r = 5% of the bbox diagonal, ball*-tree leaf_size 32,
@@ -18,9 +20,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                Bulk-load half, stream the rest in batches of 2,000 with a
                64-query batch after each and deletes every 4th batch,
                then answer all 5,300 queries and check them against an
-               exact brute scan over the live set. The builder's
-               determinism (same points twice -> same tree, bitwise) is
-               checked first.
+               exact brute scan over the live set; topk_l2's launches by
+               query count. The builder's determinism (same points twice
+               -> same tree, bitwise) is checked first.
   4. primitives — the public kernel API (`kernels/ops.py`) and the host
                layer, driven once with the launch counts set to 0 just
                before and read just after:
@@ -36,8 +38,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                    paper shape takes the narrow route: bitwise equal);
                (c) `power_iteration` (16 steps) at 500,000 x 2 and at
                    100,000 x 64 (columns scaled 5, 2, 1, ...): |cos| >
-                   0.999 against the exact eigenvector; `cov_matvec` run
-                   twice gives the same y bitwise;
+                   0.999 against the exact eigenvector; `cov_matvec` (one
+                   launch a call) bitwise equal to its plain version, and
+                   run twice gives the same y bitwise;
                (d) the quickstart's 20,000 points built by the host
                    builder (`core.build(backend="host")`), searched on the
                    card by `core.search`: ids equal to `brute`, node
@@ -45,6 +48,14 @@ Phases, in order; any failure raises and the script exits non-zero:
                    constrained vs knn-then-filter node counts.
                Then kernel / plain / library times and bounds of both
                primitive kernels.
+
+Kernel times ("ms") are CUDA-event means over back-to-back eager calls
+through the wrapper, what the port pays. For the two launch-bound
+kernels (topk_l2, cov_matvec) two more readings stand beside it:
+"graph_ms", the device time per call of calls captured in one CUDA
+graph and replayed (`time_graph_ms`: the host's enqueue cost left out),
+and "host_ms", the wrapper's host time per call (`time_host_ms`); where
+host_ms exceeds graph_ms, the eager "ms" is the host's.
 
 The last lines of standard output are a `{"kernels": [...]}` JSON
 object, the card's name and power limit, and `{"ok": true, ...}`.
@@ -115,6 +126,51 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def time_graph_ms(fn, reps: int = 50, rounds: int = 3) -> float:
+    """Mean device milliseconds per call of `fn`: `reps` calls captured
+    in one CUDA graph, replayed `rounds` times between two CUDA events —
+    the launches back to back on the device, without the host's enqueue
+    cost. Two warm-up calls on the capture stream first."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(rounds):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop) / (rounds * reps)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+def time_host_ms(fn, reps: int = 200) -> float:
+    """Mean host milliseconds per call of `fn`: the time the calling
+    thread spends enqueuing it (wall clock over `reps` calls, the card
+    synchronized before them and after, not between)."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = 1e3 * (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    return ms
 
 
 def _bound(plan, operands=torch.float32) -> tuple:
@@ -196,45 +252,58 @@ def check_leaf(dev, gen, rows=5300 * 4, c=2048, d=2, kp=18):
     return variants, 0.0
 
 
-def check_scan(dev, gen, pts, queries, r, nq=5300, n=4096, k=10):
+def check_scan(dev, pts, queries, r, shapes=((64, 4096), (5300, 4096)), k=10):
+    """topk_l2 at the main path's shapes — Q = 64 (the 64-query batches
+    against the whole 4,096-slot arena) and Q = 5,300 (the final pass) —
+    every 7th arena slot tombstoned: (sq, gid, slot) bitwise equal to the
+    plain version; kernel (eager, graph-replayed and host), plain and
+    library times, the bound."""
     from repro_torch.kernels import topk_l2 as tk
 
-    q = torch.from_numpy(queries[:nq].astype(np.float32)).to(dev)
-    p = torch.from_numpy(pts[:n].astype(np.float32)).to(dev)
-    gids = torch.arange(n, device=dev, dtype=torch.int32)
-    gids[::7] = -1  # tombstoned arena slots
-    r_sq = tk.radius_sq_upper(torch.full((nq,), r, device=dev))
-    got = tk.topk_cuda(q, p, gids, r_sq, k)
-    want = tk.topk_plain(q, p, gids, r_sq, k)
-    torch.cuda.synchronize()
-    if not torch.equal(got[1], want[1]) or not torch.equal(got[2], want[2]):
-        bad = (got[1] != want[1]).any(1).nonzero()[:4, 0].tolist()
-        raise AssertionError(f"topk_l2 ids/slots differ, rows {bad}")
-    fin = torch.isfinite(want[0])
-    if not torch.equal(torch.isfinite(got[0]), fin):
-        raise AssertionError("topk_l2 fill pattern differs")
-    err = float((got[0][fin] - want[0][fin]).abs().max()) if fin.any() else 0.0
-    # expansion-form bound: 8·2⁻²⁴·(|q|² + |p|²) on the squared distance
-    scale = (q * q).sum(1).max() + (p * p).sum(1).max()
-    if err > 8 * 2.0**-24 * float(scale):
-        raise AssertionError(f"topk_l2 sq err {err} beyond expansion bound")
-    ms = time_ms(lambda: tk.topk_cuda(q, p, gids, r_sq, k), reps=20)
-    plain_ms = time_ms(lambda: tk.topk_plain(q, p, gids, r_sq, k), reps=3, warmup=1)
+    out = {}
+    for nq, n in shapes:
+        q = torch.from_numpy(queries[:nq].astype(np.float32)).to(dev)
+        p = torch.from_numpy(pts[:n].astype(np.float32)).to(dev)
+        gids = torch.arange(n, device=dev, dtype=torch.int32)
+        gids[::7] = -1  # tombstoned arena slots
+        r_sq = tk.radius_sq_upper(torch.full((nq,), r, device=dev))
+        got = tk.topk_cuda(q, p, gids, r_sq, k)
+        want = tk.topk_plain(q, p, gids, r_sq, k)
+        torch.cuda.synchronize()
+        for what, x, y in zip(("sq", "gid", "slot"), got, want):
+            if not torch.equal(x, y):
+                bad = (x != y).any(1).nonzero()[:4, 0].tolist()
+                raise AssertionError(f"topk_l2 Q={nq} {what} differs, rows {bad}")
 
-    def library():
-        return torch.topk(torch.cdist(q, p), k, dim=1, largest=False)
+        def kernel():
+            return tk.topk_cuda(q, p, gids, r_sq, k)
 
-    library_ms = time_ms(library, reps=10)
-    # per pair: the expansion form and two compares (gate, k-th key);
-    # inputs read once, the (Q, k) triple written once
-    bound_ms, bound_by = _bound(tk.block_plan(nq, n, 2, k))
-    log(f"kernel topk_l2 Q={nq} N={n} D=2 k={k}: kernel_ms={ms:.4f} "
-        f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} "
-        f"library_ms={library_ms:.4f} max_abs_err={err}")
-    return {
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": library_ms, "max_abs_err": err,
-    }
+        def library():
+            return torch.topk(torch.cdist(q, p), k, dim=1, largest=False)
+
+        ms = time_ms(kernel, reps=20)
+        graph_ms = time_graph_ms(kernel)
+        host_ms = time_host_ms(kernel)
+        plain_ms = time_ms(lambda: tk.topk_plain(q, p, gids, r_sq, k),
+                           reps=3, warmup=1)
+        library_ms = time_ms(library, reps=10)
+        # per pair: the expansion form and two compares (gate, k-th key);
+        # inputs read once, the (Q, k) triple written once
+        plan = tk.block_plan(nq, n, 2, k)
+        bound_ms, bound_by = _bound(plan)
+        found = int((want[1] >= 0).sum())
+        log(f"kernel topk_l2 Q={nq} N={n} D=2 k={k} blocks={plan['blocks']}: "
+            f"kernel_ms={ms:.5f} graph_ms={graph_ms:.5f} host_ms={host_ms:.5f} "
+            f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by}) "
+            f"library_ms={library_ms:.4f}; (sq, gid, slot) bitwise equal to "
+            f"the plain version, {found} neighbors found")
+        out[f"q{nq}"] = {
+            "q": nq, "n": n, "ms": ms, "graph_ms": graph_ms, "host_ms": host_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "max_abs_err": 0.0,
+            "blocks": plan["blocks"],
+        }
+    return out
 
 
 # -- phase 3: the main path ------------------------------------------------------
@@ -333,11 +402,12 @@ def profile_pass(fn) -> dict:
     # the profiler links a kernel to its range through the aten op that
     # launched it; the port's kernels launch through ctypes, outside any
     # op, so their time is read from the device events by kernel name
-    kernels = {name: {"device_ms": 0.0, "launches": 0}
-               for name in ("leaf_topk", "topk_l2")}
+    by_kernel = {"leaf_topk": ("leaf_topk_kernel",),
+                 "topk_l2": ("topk_pnorm_kernel", "topk_scan_kernel")}
+    kernels = {name: {"device_ms": 0.0, "launches": 0} for name in by_kernel}
     for ev in device:
         for name, acc in kernels.items():
-            if f"{name}_kernel" in ev.name:
+            if any(k in ev.name for k in by_kernel[name]):
                 acc["device_ms"] += ev.time_range.elapsed_us() / 1e3
                 acc["launches"] += 1
     busy_us, end = 0.0, float("-inf")
@@ -362,6 +432,7 @@ def run_main(dev, pts, queries, r):
     from repro_torch.core import TreeSpec
     from repro_torch.index import StreamingConfig, StreamingIndex
     from repro_torch.kernels import ops
+    from repro_torch.kernels import topk_l2 as tk
 
     k, q_batch, batch = 10, 64, 2_000
     n = len(pts)
@@ -416,6 +487,7 @@ def run_main(dev, pts, queries, r):
     res = idx.constrained_knn(queries, k, r)
     t_full = time.perf_counter() - t0
     launches = ops.launch_counts()
+    by_q = dict(sorted(tk.LAUNCHES_BY_Q.items()))
     counters = obs.snapshot()["counters"]
     fused_used = counters.get("engine.fused_traversal{kind=used}", 0)
     n_query_batches = len(lat) + 2  # + the warm-up batch and this pass
@@ -423,6 +495,8 @@ def run_main(dev, pts, queries, r):
         f"fused_used={fused_used} fallbacks="
         f"{counters.get('engine.fused_traversal{kind=overflow_fallback}', 0)} "
         f"quant_fallback={counters.get('quantized.rescore{result=fallback}', 0)}")
+    log(f"main: topk_l2 device launches by query count {by_q} "
+        f"(two per call: the |p|^2 pre-pass and the split scan)")
     if launches["leaf_topk"] <= 0 or launches["topk_l2"] <= 0:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
     if fused_used <= 0:
@@ -465,6 +539,7 @@ def run_main(dev, pts, queries, r):
         "phase_split_profiled": split,
         "host_syncs_one_pass": syncs,
         "launches": launches,
+        "topk_l2_launches_by_q": by_q,
         "query_batches": n_query_batches,
         "stats": {key: st[key] for key in ("n_segments", "seals",
                                            "tiered_merges", "purge_merges")},
@@ -544,8 +619,8 @@ def check_pairwise(name, q, p, reps=10):
 
 
 def check_cov(name, x, reps=50):
-    """Kernel vs plain version at one shape, bitwise reproducibility;
-    times and bound."""
+    """Kernel vs plain version at one shape, bitwise, and bitwise
+    reproducibility; times (eager, graph-replayed and host) and bound."""
     from repro_torch.kernels import cov_matvec as cm
 
     n, d = x.shape
@@ -558,26 +633,23 @@ def check_cov(name, x, reps=50):
     want = cm.cov_matvec_plain(x, mean, w)
     if not torch.equal(y1, y2):
         raise AssertionError(f"cov_matvec[{name}] differs between two runs")
-    diff = (y1 - want).abs()
-    err = float(diff.max())
-    # per column, the f32 bound of the longest chain of additions in the
-    # kernel's sum: 2·chain·2⁻²⁴·(|Xc|ᵀ(|Xc||w|))
-    rows, blocks, groups = cm.geometry(n, d)
-    chain = rows // groups + groups.bit_length() + blocks + 8 + d
-    xc = (x.float() - mean).abs()
-    tols = 2 * chain * 2.0**-24 * (xc.T @ (xc @ w.abs()))
-    tol = float(tols.min())
-    if (diff > tols).any():
-        raise AssertionError(f"cov_matvec[{name}] err {err} beyond its bound")
+    if not torch.equal(y1, want):
+        err = float((y1 - want).abs().max())
+        raise AssertionError(f"cov_matvec[{name}] != plain version (max {err})")
     ms = time_ms(lambda: cm.cov_matvec_cuda(x, mean, w), reps=reps)
+    graph_ms = time_graph_ms(lambda: cm.cov_matvec_cuda(x, mean, w), reps=reps)
+    host_ms = time_host_ms(lambda: cm.cov_matvec_cuda(x, mean, w))
     plain_ms = time_ms(lambda: cm.cov_matvec_plain(x, mean, w), reps=3, warmup=1)
     bound_ms, bound_by = _bound(cm.block_plan(n, d, x.element_size()))
-    log(f"kernel cov_matvec[{name}] N={n} D={d}: kernel_ms={ms:.4f} "
-        f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by}) "
-        f"max_abs_err={err} (tol {tol:.3e}) two runs bitwise equal")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None, "max_abs_err": err,
-            "tol": tol}
+    rows, blocks, groups = cm.geometry(n, d)
+    log(f"kernel cov_matvec[{name}] N={n} D={d} {x.dtype} blocks={blocks} "
+        f"rows_per_block={rows}, one launch a call: kernel_ms={ms:.5f} "
+        f"graph_ms={graph_ms:.5f} host_ms={host_ms:.5f} plain_ms={plain_ms:.4f} "
+        f"bound_ms={bound_ms:.5f} ({bound_by}); bitwise equal to the plain "
+        f"version and across two runs")
+    return {"ms": ms, "graph_ms": graph_ms, "host_ms": host_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "max_abs_err": 0.0, "blocks": blocks}
 
 
 def check_dn_f64(lb, q, tree, rows):
@@ -643,6 +715,16 @@ def host_path(dev):
     return out
 
 
+def cov_inputs(dev, pts, gen):
+    """power_iteration's and cov_matvec's two inputs: the root split (the
+    points, 500,000 x 2) and 100,000 x 64 normal columns scaled 5, 2, 1,
+    ... (from `gen`)."""
+    x_root = torch.from_numpy(pts.astype(np.float32)).to(dev)
+    scale = torch.ones(COV_WIDE[1], device=dev)
+    scale[0], scale[1] = 5.0, 2.0
+    return x_root, torch.randn(COV_WIDE, generator=gen, device=dev) * scale
+
+
 def run_primitives(dev, pts, queries):
     from repro_torch.core import TreeSpec, build, first_component_exact
     from repro_torch.kernels import ops
@@ -660,10 +742,7 @@ def run_primitives(dev, pts, queries):
                    torch.randn((wn, wd), generator=gen, device=dev).to(dt))
             for name, dt in (("wide_f32", torch.float32),
                              ("wide_bf16", torch.bfloat16))}
-    x_root = torch.from_numpy(pts.astype(np.float32)).to(dev)
-    scale = torch.ones(COV_WIDE[1], device=dev)
-    scale[0], scale[1] = 5.0, 2.0
-    x_wide = torch.randn(COV_WIDE, generator=gen, device=dev) * scale
+    x_root, x_wide = cov_inputs(dev, pts, gen)
     torch.cuda.synchronize()
 
     # the path: every call through the public wrappers, counts from 0
@@ -713,7 +792,9 @@ def run_primitives(dev, pts, queries):
         if not cos[name] > 0.999:
             raise AssertionError(f"power_iteration[{name}] |cos| {cos[name]}")
     log(f"primitives: power_iteration |cos| vs first_component_exact {cos}")
-    cov = {"root": check_cov("root", x_root), "wide": check_cov("wide", x_wide)}
+    cov = {"root": check_cov("root", x_root), "wide": check_cov("wide", x_wide),
+           "root_bf16": check_cov("root_bf16", x_root.to(torch.bfloat16)),
+           "wide_bf16": check_cov("wide_bf16", x_wide.to(torch.bfloat16))}
     log("primitives: summary " + json.dumps({
         "n_nodes": tree.n_nodes, "lower_bounds_err_vs_plain": lb_err,
         "lower_bounds_err_vs_f64": dn_err, "pairwise": pair,
@@ -722,12 +803,21 @@ def run_primitives(dev, pts, queries):
     return launches, pair, cov
 
 
+def main_data():
+    """The main path's data: highleyman 500,000 points, 5,300 uniform
+    queries, r = 5% of the bbox diagonal."""
+    from repro_torch.data.synthetic import highleyman, uniform_queries
+
+    pts = highleyman(500_000, seed=0)
+    queries = uniform_queries(pts, 5_300, seed=1)
+    return pts, queries, 0.05 * float(np.linalg.norm(pts.max(0) - pts.min(0)))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke needs a card",
               file=sys.stderr)
         return 2
-    from repro_torch.data.synthetic import highleyman, uniform_queries
     from repro_torch.kernels import cuda_lib
 
     torch.backends.cuda.matmul.allow_tf32 = False  # cdist yardstick in f32
@@ -742,13 +832,11 @@ def main() -> int:
         if "registers" in line or "Compiling entry" in line:
             log("ptxas: " + line.strip())
 
-    pts = highleyman(500_000, seed=0)
-    queries = uniform_queries(pts, 5_300, seed=1)
-    r = 0.05 * float(np.linalg.norm(pts.max(0) - pts.min(0)))
+    pts, queries, r = main_data()
 
     gen = torch.Generator(device=dev).manual_seed(0)
     leaf_variants, leaf_err = check_leaf(dev, gen)
-    scan = check_scan(dev, gen, pts, queries, r)
+    scan = check_scan(dev, pts, queries, r)
 
     launches = run_main(dev, pts, queries, r)
     prim_launches, pair, cov = run_primitives(dev, pts, queries)
@@ -763,11 +851,16 @@ def main() -> int:
             "library_ms": None, "variants": leaf_variants,
         },
         {
+            # the final pass's shape, Q = 5,300, as in earlier runs; the
+            # 64-query batches' shape under variants["q64"]
             "name": "topk_l2", "route": "cuda", "source": LEAF_SRC,
             "replaces": SCAN_REPLACES, "launches": launches["topk_l2"],
-            "max_abs_err": scan["max_abs_err"], "ms": scan["ms"],
-            "plain_ms": scan["plain_ms"], "bound_ms": scan["bound_ms"],
-            "bound_by": scan["bound_by"], "library_ms": scan["library_ms"],
+            "max_abs_err": 0.0, "ms": scan["q5300"]["ms"],
+            "graph_ms": scan["q5300"]["graph_ms"],
+            "plain_ms": scan["q5300"]["plain_ms"],
+            "bound_ms": scan["q5300"]["bound_ms"],
+            "bound_by": scan["q5300"]["bound_by"],
+            "library_ms": scan["q5300"]["library_ms"], "variants": scan,
         },
     ]
     for name, src, replaces, res, main_key in (
@@ -782,6 +875,7 @@ def main() -> int:
             "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"], "variants": res,
+            **({"graph_ms": m["graph_ms"]} if "graph_ms" in m else {}),
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -6,149 +6,349 @@
 //               it computes y = (X - mu)^T ((X - mu) w), y (D,) f32.
 //
 // Bound on this card: one streaming read of x (N * D * itemsize bytes) and
-// 4ND operations — a few MB at the sizes the builder meets, so a launch
-// (microseconds) outweighs both. The design therefore reads x once per
-// block with coalesced loads and keeps every intermediate on chip.
+// 4ND operations — a few MB at the sizes the builder meets, so the launch,
+// the memory latency and the shared-memory traffic weigh as much as the
+// bytes. The design is one launch per call that streams x once from device
+// memory through shared memory and keeps every intermediate on chip.
 //
 // The TPU kernel carries its (1, D) output block across a sequential grid;
-// blocks on this card run in no order, so the sum is split in two passes,
-// and there are no float atomics: y is bitwise the same from run to run.
+// blocks on this card run in no order, so each block writes a partial and
+// the LAST block to finish folds them (a __threadfence, then an atomic
+// ticket in a counter the wrapper zeroes once per stream; that block resets
+// it to 0). There are no float atomics: every sum is taken in one fixed
+// order, so y is bitwise the same from run to run. Geometry (all of it a
+// function of N and D alone, from ../cov_matvec.py `geometry`, `tile_rows`
+// and `row_lanes`):
 //
-//   pass 1 (cov_partial_kernel): block b owns rows [b*R, min(N, (b+1)*R)),
-//     R a multiple of 256, walked in tiles of 256 rows. Per tile, thread i
-//     computes t_i = sum_k (x_ik - mu_k) w_k for row i (k in order) into
-//     shared memory; then the threads are split into `groups` row groups
-//     times min(D, 256) columns, and thread (g, k) adds t_i * (x_ik - mu_k)
-//     for the tile's rows i = g (mod groups), in order, to its running sum.
-//     groups = the largest power of two <= 256 / min(D, 256), so a narrow D
-//     still keeps the block busy. The group sums are folded by a fixed
-//     halving tree (acc[g] += acc[g + s] for s = groups/2, ..., 1) and the
-//     block writes its partial row partial[b, :].
-//   pass 2 (cov_reduce_kernel): one block per column k: thread j sums
-//     partial[b, k] for b = j, j + 256, ... in order, then a fixed halving
-//     tree over the 256 thread sums gives y_k.
+//   CW = min(256, next pow2 >= D) columns, G = 256 / CW row groups; thread
+//   t is group g = t / CW, column c = t % CW, and owns columns c, c + CW, ...
+//   Block b owns rows [b*R, min(N, (b+1)*R)), walked in tiles of T rows
+//   (T a multiple of G, at most 4,096 values). Per tile:
+//     load  the tile streams into a ring of three shared-memory stages by
+//           cp.async (16 bytes a copy, two tiles ahead of the one being
+//           summed); where x is not 16-byte aligned, the tile is read
+//           element by element into one stage instead. Both phases read
+//           the tile where it landed and compute xc = x - mu on the fly
+//           ((mu_k, w_k) as one float2 in shared memory);
+//     t     P = row_lanes(D) lanes a row: lane q sums xc_ik * w_k over the
+//           columns k = q + P*s, s = 0 .. S-1 (S = ceil(D / P)), from 0;
+//           rows wider than 4 start at s = (row mod 32) mod S and wrap
+//           around, so a warp's rows read different banks; then a halving
+//           tree over the P lanes (xor-shuffles) gives t_i;
+//     sums  thread (g, c) adds t_i * xc_ic for the tile's rows i = g (mod
+//           G), in order, to its running sum (starting from 0).
+//   Group fold: within a warp (GW = 32 / CW groups when CW < 32) a halving
+//   tree over the groups by xor-shuffles (offsets 16 .. CW lanes); then a
+//   halving tree over the NW = G / GW warp sums (NW <= 8), one thread per
+//   column. The block writes partial[b, :].
+//   Last block: thread (f, c) sums partial[b, c] for b = f, f + G, ... in
+//   order (32 loads in flight), then the same group fold gives y.
 //
 // Arithmetic: explicitly rounded intrinsics (__fsub_rn / __fmul_rn /
 // __fadd_rn, never contracted to FMAs), in exactly the order above. The
 // plain version in ../cov_matvec.py repeats that order with whole-tensor
 // operations, so kernel and plain version agree bitwise.
 //
-// The C entry point launches both passes on the caller's stream, allocates
-// nothing (the wrapper passes the (blocks, D) scratch) and returns
-// cudaGetLastError() (0 = launched).
+// The C entry point launches once on the caller's stream, allocates nothing
+// (the wrapper passes the (blocks, D) partials and the ticket counter) and
+// returns cudaGetLastError() (0 = launched).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;  // threads per block, rows per tile
+constexpr int kThreads = 256;     // threads per block
+constexpr int kWarp = 32;
+constexpr int kTileValues = 4096; // a tile holds at most this many values
+constexpr int kStages = 3;        // tiles in the cp.async ring
+constexpr int kStageBytes = kTileValues * 4;  // one tile, raw
+constexpr int kRowDotMaxD = 4;    // wider rows start their dot rotated
+constexpr int kFoldLoads = 32;    // partials a thread loads at once
+constexpr int kMaxColsPerThread = 8;  // D <= 8 * 256 = 2048
+constexpr int kDefaultSmem = 48 * 1024;
 
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    cov_partial_kernel(const T* __restrict__ x, const float* __restrict__ mean,
-                       const float* __restrict__ w, int n, int d,
-                       int rows_per_block, int groups,
-                       float* __restrict__ partial) {
-  extern __shared__ float smem[];
-  float* ts = smem;             // [kThreads]: t of the tile's rows
-  float* acc = smem + kThreads; // [groups][d]
-  const int dc = min(d, kThreads);
-  const int g = threadIdx.x / dc;
-  const int col = threadIdx.x % dc;
-  const bool active = g < groups;
-  if (active)
-    for (int k = col; k < d; k += kThreads) acc[g * d + k] = 0.0f;
+struct Layout {
+  int d, cw, groups, gw, nw, cpt;
+  int g, c;  // this thread's group and column
 
-  const long long lo = (long long)blockIdx.x * rows_per_block;
-  const long long hi = min((long long)n, lo + rows_per_block);
-  for (long long base = lo; base < hi; base += kThreads) {
-    const long long row = base + threadIdx.x;
-    float t = 0.0f;
-    if (row < hi) {
-      const T* xr = x + row * d;
-      for (int k = 0; k < d; ++k)
-        t = __fadd_rn(t, __fmul_rn(__fsub_rn(widen(xr[k]), mean[k]), w[k]));
-    }
-    ts[threadIdx.x] = t;
-    __syncthreads();
-    if (active) {
-      const int cnt = (int)min((long long)kThreads, hi - base);
-      for (int k = col; k < d; k += kThreads) {
-        const float mu = mean[k];
-        float a = acc[g * d + k];
-        for (int i = g; i < cnt; i += groups) {
-          const float xc = __fsub_rn(widen(x[(base + i) * d + k]), mu);
-          a = __fadd_rn(a, __fmul_rn(ts[i], xc));
-        }
-        acc[g * d + k] = a;
-      }
-    }
-    __syncthreads();
+  __device__ explicit Layout(int d_) : d(d_) {
+    cw = 1;
+    while (cw < d && cw < kThreads) cw <<= 1;
+    groups = kThreads / cw;
+    gw = cw < kWarp ? kWarp / cw : 1;
+    nw = groups / gw;
+    cpt = (d + cw - 1) / cw;
+    g = threadIdx.x / cw;
+    c = threadIdx.x % cw;
   }
-  for (int s = groups / 2; s >= 1; s /= 2) {
-    if (g < s)
-      for (int k = col; k < d; k += kThreads)
-        acc[g * d + k] = __fadd_rn(acc[g * d + k], acc[(g + s) * d + k]);
-    __syncthreads();
+};
+
+// The group fold of ../cov_matvec.py `_fold_groups`: acc[j] is this
+// thread's sum for column c + j * CW; the result for every column lands in
+// out[col] (a global pointer), written by one thread per column. `ws` is
+// NW * D floats of shared memory. Called by every thread of the block.
+template <int kCols>
+__device__ void fold_groups(const Layout& L, float (&acc)[kCols], float* ws,
+                            float* out) {
+  // within a warp: xor-shuffles over its GW groups, highest bit first
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) {
+    if (j >= L.cpt) break;
+    for (int off = kWarp / 2; off >= L.cw; off >>= 1)
+      acc[j] = __fadd_rn(acc[j], __shfl_xor_sync(0xffffffffu, acc[j], off));
   }
-  if (g == 0)
-    for (int k = col; k < d; k += kThreads)
-      partial[(long long)blockIdx.x * d + k] = acc[k];
+  // the warp's (or, for CW >= 32, the group's) sums to shared memory
+  const int wg = L.g / L.gw;  // this thread's index among the NW sums
+  if (L.g % L.gw == 0) {
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      const int col = L.c + j * L.cw;
+      if (j < L.cpt && col < L.d) ws[wg * L.d + col] = acc[j];
+    }
+  }
+  __syncthreads();
+  // halving tree over the NW sums, one thread per column
+  for (int col = threadIdx.x; col < L.d; col += kThreads) {
+    float v[8];
+#pragma unroll
+    for (int w = 0; w < 8; ++w) v[w] = w < L.nw ? ws[w * L.d + col] : 0.f;
+#pragma unroll
+    for (int h = 4; h >= 1; h >>= 1)
+      if (h < L.nw)
+#pragma unroll
+        for (int w = 0; w < h; ++w) v[w] = __fadd_rn(v[w], v[w + h]);
+    out[col] = v[0];
+  }
 }
 
+// 16 bytes global -> shared, asynchronous, L2 only; the bytes past
+// `src_bytes` (< 16 at the end of x) are zero-filled and not read.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// kAsync: x 16-byte aligned and every tile a whole number of 16-byte
+// units, so tiles stream through a kStages ring of shared-memory stages by
+// cp.async, kStages - 1 tiles ahead of the one being summed; otherwise each
+// tile is loaded element by element into stage 0 when it is summed. Both
+// phases read the tile where it landed and subtract mu on the fly.
+template <typename T, bool kAsync, int kCols>
 __global__ void __launch_bounds__(kThreads)
-    cov_reduce_kernel(const float* __restrict__ partial, int blocks, int d,
-                      float* __restrict__ y) {
-  __shared__ float v[kThreads];
-  const int k = blockIdx.x;
-  float a = 0.0f;
-  for (int b = threadIdx.x; b < blocks; b += kThreads)
-    a = __fadd_rn(a, partial[(long long)b * d + k]);
-  v[threadIdx.x] = a;
-  __syncthreads();
-  for (int s = kThreads / 2; s >= 1; s /= 2) {
-    if (threadIdx.x < s)
-      v[threadIdx.x] = __fadd_rn(v[threadIdx.x], v[threadIdx.x + s]);
-    __syncthreads();
+    cov_matvec_kernel(const T* __restrict__ x, const float* __restrict__ mean,
+                      const float* __restrict__ w, long long n, int d,
+                      int tile_rows, long long rows_per_block, int row_lanes,
+                      float* __restrict__ partial,
+                      unsigned* __restrict__ ticket, float* __restrict__ y) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int s_last;
+  const Layout L(d);
+  unsigned char* stages = smem_raw;  // [kStages or 1][kStageBytes]
+  float2* mw = reinterpret_cast<float2*>(smem_raw + (kAsync ? kStages : 1) * kStageBytes);
+  float* ws = reinterpret_cast<float*>(mw + d);  // [8d]: the NW * d group sums
+  float* ts = ws + 8 * d;      // [tile_rows] t of the tile's rows
+  for (int k = threadIdx.x; k < d; k += kThreads) mw[k] = make_float2(mean[k], w[k]);
+  // this thread's columns' means, for the column sums
+  float mu_c[kCols];
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) {
+    const int col = L.c + j * L.cw;
+    mu_c[j] = j < L.cpt && col < d ? mean[col] : 0.f;
   }
-  if (threadIdx.x == 0) y[k] = v[0];
+
+  float acc[kCols];
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) acc[j] = 0.f;
+
+  const long long lo = static_cast<long long>(blockIdx.x) * rows_per_block;
+  const long long hi = min(n, lo + rows_per_block);
+  const int tiles = static_cast<int>((hi - lo + tile_rows - 1) / tile_rows);
+  // tile `t` of this block into ring stage t % kStages (one commit group)
+  auto issue = [&](int t) {
+    if (t < tiles) {
+      const long long r0 = lo + static_cast<long long>(t) * tile_rows;
+      const long long bytes =
+          min(static_cast<long long>(tile_rows), hi - r0) * d * sizeof(T);
+      const unsigned char* src =
+          reinterpret_cast<const unsigned char*>(x + r0 * d);
+      unsigned char* dst = stages + (t % kStages) * kStageBytes;
+      for (int u = threadIdx.x; u * 16 < bytes; u += kThreads)
+        cp_async16(dst + u * 16, src + u * 16,
+                   static_cast<int>(min(16LL, bytes - u * 16)));
+    }
+    cp_async_commit();
+  };
+  if constexpr (kAsync) {
+#pragma unroll
+    for (int t = 0; t < kStages - 1; ++t) issue(t);
+  }
+  for (int t = 0; t < tiles; ++t) {
+    const long long r0 = lo + static_cast<long long>(t) * tile_rows;
+    const int rows = static_cast<int>(min(static_cast<long long>(tile_rows), hi - r0));
+    const T* xt;  // the tile, in shared memory
+    if constexpr (kAsync) {
+      cp_async_wait<kStages - 2>();  // this thread's units of tile t landed
+      __syncthreads();  // tile t visible; tile t - 1 consumed
+      issue(t + kStages - 1);  // into tile t - 1's stage
+      xt = reinterpret_cast<const T*>(stages + (t % kStages) * kStageBytes);
+    } else {
+      __syncthreads();  // tile t - 1 consumed
+      T* dst = reinterpret_cast<T*>(stages);
+      for (int e = threadIdx.x; e < rows * d; e += kThreads) dst[e] = x[r0 * d + e];
+      __syncthreads();
+      xt = dst;
+    }
+    // t_i = sum_k (x_ik - mu_k) w_k by P = row_lanes lanes a row: lane q
+    // sums columns q + P*s from 0, s = 0 .. S-1 (S = ceil(D / P)) in turn
+    // starting at s = (row mod 32) mod S for rows wider than kRowDotMaxD
+    // (so a warp's rows read different banks), then a halving tree over
+    // the P lanes (xor-shuffles)
+    const int per_pass = kThreads / row_lanes;
+    const int q = threadIdx.x % row_lanes;
+    const int steps = (d + row_lanes - 1) / row_lanes;
+    for (int base = 0; base < rows; base += per_pass) {
+      const int i = base + threadIdx.x / row_lanes;
+      float tv = 0.f;
+      if (i < rows) {
+        const T* xr = xt + i * d;
+        int st = d > kRowDotMaxD ? static_cast<int>((r0 + i) % kWarp) % steps : 0;
+#pragma unroll 4
+        for (int s0 = 0; s0 < steps; ++s0) {
+          const int k = q + row_lanes * st;
+          if (k < d) {
+            const float2 m = mw[k];  // (mu_k, w_k)
+            tv = __fadd_rn(tv, __fmul_rn(__fsub_rn(widen(xr[k]), m.x), m.y));
+          }
+          st = st + 1 == steps ? 0 : st + 1;
+        }
+      }
+      for (int off = row_lanes / 2; off >= 1; off >>= 1)
+        tv = __fadd_rn(tv, __shfl_xor_sync(0xffffffffu, tv, off));
+      if (i < rows && q == 0) ts[i] = tv;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      const int col = L.c + j * L.cw;
+      if (j >= L.cpt || col >= d) break;
+      float a = acc[j];
+#pragma unroll 4
+      for (int i = L.g; i < rows; i += L.groups)
+        a = __fadd_rn(a, __fmul_rn(ts[i], __fsub_rn(widen(xt[i * d + col]), mu_c[j])));
+      acc[j] = a;
+    }
+  }
+  if constexpr (kAsync) cp_async_wait<0>();  // no copy outlives the block
+  __syncthreads();  // the tiles are consumed
+  fold_groups(L, acc, ws, partial + static_cast<long long>(blockIdx.x) * d);
+
+  // the last block to finish folds the partials
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned tk = atomicAdd(ticket, 1u);
+    s_last = tk == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  if (threadIdx.x == 0) *ticket = 0u;  // zero again for the next launch
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) {
+    const int col = L.c + j * L.cw;
+    if (j >= L.cpt || col >= d) break;
+    // blocks g, g + G, ... in order; kFoldLoads loads in flight at a time
+    const int nb = static_cast<int>(gridDim.x);
+    const float* src = partial + col;
+    float a = 0.f;
+    int b = L.g;
+    for (; b + (kFoldLoads - 1) * L.groups < nb; b += kFoldLoads * L.groups) {
+      float v[kFoldLoads];
+#pragma unroll
+      for (int u = 0; u < kFoldLoads; ++u)
+        v[u] = __ldcg(src + static_cast<long long>(b + u * L.groups) * d);
+#pragma unroll
+      for (int u = 0; u < kFoldLoads; ++u) a = __fadd_rn(a, v[u]);
+    }
+    for (; b < nb; b += L.groups)
+      a = __fadd_rn(a, __ldcg(src + static_cast<long long>(b) * d));
+    acc[j] = a;
+  }
+  fold_groups(L, acc, ws, y);
+}
+
+template <typename T>
+int launch(const void* x, const void* mean, const void* w, long long n, int d,
+           int tile_rows, long long rows_per_block, int row_lanes,
+           void* partial, void* ticket, void* y, cudaStream_t stream) {
+  const long long blocks = (n + rows_per_block - 1) / rows_per_block;
+  const bool async = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                     (static_cast<size_t>(tile_rows) * d * sizeof(T)) % 16 == 0;
+  const size_t smem = static_cast<size_t>(async ? kStages : 1) * kStageBytes +
+                      sizeof(float) * (10 * static_cast<size_t>(d) + tile_rows);
+  // one column a thread up to D = 256, else up to kMaxColsPerThread
+  auto kernel = d <= kThreads
+                    ? (async ? cov_matvec_kernel<T, true, 1>
+                             : cov_matvec_kernel<T, false, 1>)
+                    : (async ? cov_matvec_kernel<T, true, kMaxColsPerThread>
+                             : cov_matvec_kernel<T, false, kMaxColsPerThread>);
+  if (smem > kDefaultSmem) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(mean),
+      static_cast<const float*>(w), n, d, tile_rows, rows_per_block, row_lanes,
+      static_cast<float*>(partial), static_cast<unsigned*>(ticket),
+      static_cast<float*>(y));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = f32, 1 = bf16 (x only; mean and w are f32). partial: (blocks,
-// d) f32 scratch with blocks = ceil(n / rows_per_block); y: (d,) f32.
+// dtype: 0 = f32, 1 = bf16 (x only; mean and w are f32). tile_rows and
+// rows_per_block from ../cov_matvec.py `geometry` (rows_per_block a
+// multiple of tile_rows, tile_rows a multiple of the row groups, at most
+// kTileValues values a tile); partial: (blocks, d) f32 scratch with blocks =
+// ceil(n / rows_per_block); ticket: one uint32, 0 at launch and 0 again
+// after it; y: (d,) f32.
 int cov_matvec_launch(int dtype, const void* x, const void* mean,
-                      const void* w, int n, int d, int rows_per_block,
-                      int groups, void* partial, void* y, void* stream) {
-  const int blocks =
-      (int)(((long long)n + rows_per_block - 1) / rows_per_block);
-  const size_t smem = sizeof(float) * (kThreads + (size_t)groups * d);
+                      const void* w, long long n, int d, int tile_rows,
+                      long long rows_per_block, int row_lanes, void* partial,
+                      void* ticket, void* y, void* stream) {
+  if (n <= 0 || d <= 0 || d > kMaxColsPerThread * kThreads ||
+      tile_rows <= 0 || rows_per_block % tile_rows != 0 ||
+      static_cast<long long>(tile_rows) * d > kTileValues || row_lanes < 1 ||
+      row_lanes > kWarp || (row_lanes & (row_lanes - 1)) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    cov_partial_kernel<__nv_bfloat16><<<blocks, kThreads, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(mean),
-        static_cast<const float*>(w), n, d, rows_per_block, groups,
-        static_cast<float*>(partial));
-  } else {
-    cov_partial_kernel<float><<<blocks, kThreads, smem, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(mean),
-        static_cast<const float*>(w), n, d, rows_per_block, groups,
-        static_cast<float*>(partial));
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cov_reduce_kernel<<<d, kThreads, 0, s>>>(static_cast<const float*>(partial),
-                                           blocks, d, static_cast<float*>(y));
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(x, mean, w, n, d, tile_rows, rows_per_block,
+                                 row_lanes, partial, ticket, y, s);
+  if (dtype == 0)
+    return launch<float>(x, mean, w, n, d, tile_rows, rows_per_block,
+                         row_lanes, partial, ticket, y, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

@@ -30,16 +30,36 @@
 //              clamp at 0, gate on liveness and the squared radius, and keep
 //              the k smallest by (sq, slot).
 //              Bound on this card: at the main path's N = 4096, D = 2 the
-//              bytes (a 32 KB arena) and the distance flops (~9 per pair)
-//              take microseconds, and so does a launch; the selection work
-//              bounds it (a ballot and a threshold compare per pair, plus
-//              the serial insertions: ~0.11 ms at Q = 5300 on an H100).
-//              The design shares each tile of points through shared memory
-//              between the block's warps (one warp per query), so the arena
-//              is read from device memory once per block, and rejects most
-//              candidates with one compare against the warp's k-th key.
+//              bytes (a 48 KB arena, read from L2 by every block) and the
+//              distance operations (~9 per pair) take microseconds; the
+//              selection work and, at the main path's Q = 64, the launch
+//              and the latency of a few dependent steps bound it. Design,
+//              two launches per call:
+//                topk_pnorm_kernel  |p|^2 of every arena point, once, into
+//                                   a scratch (at D = 2 with the point and
+//                                   its gid: one 16-byte record a point,
+//                                   padded with dead records to whole
+//                                   steps, so the scan's loads need no
+//                                   bounds);
+//                topk_scan_kernel   grid (query groups of 8) x (arena
+//                                   splits S): one warp a query, scanning
+//                                   its block's split in steps of 32 x PPL
+//                                   points (PPL a lane, the next step's in
+//                                   flight). k <= 32: the register list
+//                                   below, one filter compare a pair and one
+//                                   vote a step; k > 32: the shared-memory
+//                                   list, PPL = 1, S = 1.
+//              S and PPL depend on (Q, N, k) alone (../topk_l2.py
+//              `scan_geometry`), so that Q = 64 still fills the card: with
+//              S > 1 each block writes its queries' split k-lists to a
+//              scratch; the LAST block of a query group to finish (a
+//              __threadfence, then an atomic ticket in a per-stream counter
+//              that it resets to 0) merges the group's S k-lists through
+//              the same register list. (sq, slot) is a total order, so the
+//              k best do not depend on the split or the order of merging:
+//              the result equals the plain version's bitwise.
 //
-// The shared-memory insertion list (topk_l2, and leaf_topk for k > 32):
+// The shared-memory insertion list (k > 32, in both kernels):
 // each warp owns a sorted k-list in shared memory. Candidates arrive 32 at a
 // time, one per lane; lanes whose key beats the list's k-th key are
 // inserted one by one (lowest lane first): the warp counts the entries
@@ -67,7 +87,7 @@ constexpr int kWarp = 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kI32Max = 2147483647;
 constexpr int kLeafWarps = 8;   // rows per block of leaf_topk
-constexpr int kScanWarps = 8;   // queries per block of topk_l2
+constexpr int kScanWarps = 8;   // warps per block of topk_l2
 constexpr int kDefaultSmem = 48 * 1024;
 
 __device__ __forceinline__ bool key_less(float asq, int aslot, float bsq,
@@ -442,77 +462,342 @@ __global__ void __launch_bounds__(kLeafWarps * kWarp)
   }
 }
 
-__global__ void __launch_bounds__(kScanWarps * kWarp)
-    topk_l2_kernel(const float* __restrict__ q, const float* __restrict__ p,
-                   const int* __restrict__ gids,
-                   const float* __restrict__ r_sq, int Q, int N, int D, int k,
-                   int tile, float* __restrict__ out_sq,
-                   int* __restrict__ out_gid, int* __restrict__ out_slot) {
-  extern __shared__ unsigned char smem[];
-  const int lane = threadIdx.x & (kWarp - 1);
-  const int warp = threadIdx.x / kWarp;
-  const int row = blockIdx.x * kScanWarps + warp;
-  const bool active = row < Q;  // no early exit: the block shares barriers
-
-  float* tp = reinterpret_cast<float*>(smem);  // (tile, D) points
-  float* tpn = tp + static_cast<size_t>(tile) * D;  // (tile,) |p|^2
-  int* tg = reinterpret_cast<int*>(tpn + tile);     // (tile,) gids
-  float* all_sq = reinterpret_cast<float*>(tg + tile);
-  int* all_slot = reinterpret_cast<int*>(all_sq + kScanWarps * k);
-  int* all_gid = all_slot + kScanWarps * k;
-  WarpList list{all_sq + warp * k, all_slot + warp * k, all_gid + warp * k,
-                k};
-
-  const float* qr = q + static_cast<size_t>(active ? row : 0) * D;
-  float qn = 0.f;
-  for (int d = 0; d < D; ++d) qn = __fadd_rn(qn, __fmul_rn(qr[d], qr[d]));
-  const float rs = active ? r_sq[row] : 0.f;
-  list.init(lane);
-
-  for (int t0 = 0; t0 < N; t0 += tile) {
-    const int nt = min(tile, N - t0);
-    __syncthreads();  // the previous tile is fully consumed
-    for (int i = threadIdx.x; i < nt * D; i += blockDim.x)
-      tp[i] = p[static_cast<size_t>(t0) * D + i];
-    for (int i = threadIdx.x; i < nt; i += blockDim.x) tg[i] = gids[t0 + i];
-    __syncthreads();
-    for (int i = threadIdx.x; i < nt; i += blockDim.x) {
-      float s = 0.f;
-      for (int d = 0; d < D; ++d)
-        s = __fadd_rn(s, __fmul_rn(tp[i * D + d], tp[i * D + d]));
-      tpn[i] = s;
-    }
-    __syncthreads();
-    if (!active) continue;
-    for (int base = 0; base < nt; base += kWarp) {
-      const int j = base + lane;
-      float sq = __int_as_float(0x7f800000);
-      int slot = kI32Max, g = -1;
-      if (j < nt) {
-        float dot = 0.f;
-        for (int d = 0; d < D; ++d)
-          dot = __fadd_rn(dot, __fmul_rn(qr[d], tp[j * D + d]));
-        float v = __fsub_rn(__fadd_rn(qn, tpn[j]), __fmul_rn(2.f, dot));
-        v = v < 0.f ? 0.f : v;
-        const int gid = tg[j];
-        if (gid >= 0 && v <= rs) {
-          sq = v;
-          slot = t0 + j;
-          g = gid;
-        }
-      }
-      list.offer(lane, sq, slot, g);
-    }
-  }
-  if (active) list.store(lane, row, out_sq, out_gid, out_slot);
-}
-
 template <typename Kernel>
 cudaError_t prepare_smem(Kernel kernel, size_t smem) {
   if (smem <= kDefaultSmem) return cudaSuccess;
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
+}
+
+// -- topk_l2 --------------------------------------------------------------------
+
+// q.p summed in dimension order, the first product not added to 0: the
+// plain version's `dot`, operation for operation.
+__device__ __forceinline__ float dot_rn(const float* a, const float* b, int D) {
+  float s = __fmul_rn(a[0], b[0]);
+  for (int d = 1; d < D; ++d) s = __fadd_rn(s, __fmul_rn(a[d], b[d]));
+  return s;
+}
+
+// |p|^2 of every arena point, once a launch, +inf for a dead point (gid <
+// 0), so the scan's one filter compare rejects it. kPack (D = 2): one
+// 16-byte record a point, (x, y, |p|^2, gid), so the scan loads a point
+// with one vector load, and `records` (>= N) records: the slots past N are
+// dead, so every split's steps are whole and need no bounds; otherwise
+// |p|^2 alone for the N points.
+template <bool kPack>
+__global__ void __launch_bounds__(256)
+    topk_pnorm_kernel(const float* __restrict__ p,
+                      const int* __restrict__ gids, int N, int D, int records,
+                      float* __restrict__ pn) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= records) return;
+  const float* pr = p + static_cast<size_t>(j) * D;
+  const int g = j < N ? gids[j] : -1;
+  const float n = g >= 0 ? dot_rn(pr, pr, D) : __int_as_float(0x7f800000);
+  if constexpr (kPack) {
+    reinterpret_cast<float4*>(pn)[j] =
+        g >= 0 ? make_float4(pr[0], pr[1], n, __int_as_float(g))
+               : make_float4(0.f, 0.f, n, __int_as_float(-1));
+  } else {
+    pn[j] = n;
+  }
+}
+
+struct ScanArgs {
+  const float* q;
+  const float* p;
+  const float* pn;  // from topk_pnorm_kernel: padded (x, y, |p|^2, gid)
+                    // records at D = 2, else (N,) |p|^2
+  const int* gids;
+  const float* r_sq;
+  int Q, N, D, k;
+  int split;  // arena points per split (a multiple of 32 * PPL)
+  int S;      // splits; block b scans split b % S for query group b / S
+  float* part_sq;  // (Q, S, k) split k-lists (S > 1)
+  int* part_gid;
+  int* part_slot;
+  unsigned* tickets;  // one per query group: 0 at launch, 0 again after it
+  float* out_sq;
+  int* out_gid;
+  int* out_slot;
+};
+
+// One arena point as a lane holds it (VD: the depth the registers are
+// built for, 0 for any depth: the coordinates are then read per use).
+template <int VD>
+struct ArenaPoint {
+  float c[VD > 0 ? VD : 1];
+  float n;
+  int g;
+};
+
+// One query as its warp holds it (every lane the same values).
+template <int VD>
+struct ScanQuery {
+  float c[VD > 0 ? VD : 1];
+  const float* row;
+  float n, rs;
+};
+
+// Arena point j; at D = 2 `rec` is this lane's record pointer at j (the
+// records are padded, so it is always there), otherwise read by index.
+template <int VD>
+__device__ __forceinline__ void load_point(const ScanArgs& a, const float4* rec,
+                                           int j, bool in, ArenaPoint<VD>& pt) {
+  if constexpr (VD == 2) {
+    const float4 v = __ldg(rec);
+    pt.c[0] = v.x;
+    pt.c[1] = v.y;
+    pt.n = v.z;
+    pt.g = __float_as_int(v.w);
+  } else {
+    pt.n = __int_as_float(0x7f800000);
+    pt.g = -1;
+    if (in) {
+      pt.n = __ldg(a.pn + j);
+      pt.g = __ldg(a.gids + j);
+    }
+  }
+}
+
+// (|q|^2 + |p|^2) - 2 q.p, the dot in dimension order, each operation
+// rounded on its own as the plain version does, NOT yet clamped at 0.
+template <int VD>
+__device__ __forceinline__ float expansion(const ScanQuery<VD>& q,
+                                           const ArenaPoint<VD>& pt,
+                                           const float* prow, int D) {
+  float dot;
+  if constexpr (VD > 0) {
+    dot = __fmul_rn(q.c[0], pt.c[0]);
+#pragma unroll
+    for (int d = 1; d < VD; ++d) dot = __fadd_rn(dot, __fmul_rn(q.c[d], pt.c[d]));
+  } else {
+    dot = __fmul_rn(q.row[0], __ldg(prow));
+    for (int d = 1; d < D; ++d)
+      dot = __fadd_rn(dot, __fmul_rn(q.row[d], __ldg(prow + d)));
+  }
+  return __fsub_rn(__fadd_rn(q.n, pt.n), __fmul_rn(2.f, dot));
+}
+
+__device__ __forceinline__ float clamp0(float v) { return v < 0.f ? 0.f : v; }
+
+// One query's register k-best to the outputs (lanes < k).
+__device__ __forceinline__ void store_reg(const ScanArgs& a, const RegList& r,
+                                          int row, int lane) {
+  if (lane < a.k) {
+    const size_t at = static_cast<size_t>(row) * a.k + lane;
+    a.out_sq[at] = r.sq;
+    a.out_gid[at] = r.gid;
+    a.out_slot[at] = r.slot;
+  }
+}
+
+// Merge exactly the first 32 buffered survivors (count >= 32) into the
+// list, then keep those of the rest that still beat its k-th key, moved to
+// the front: one bitonic merge a drain, however full the buffer was.
+__device__ __forceinline__ void drain32(Survivors& b, int lane, RegList& list) {
+  __syncwarp();
+  list.merge(lane, b.sq[lane], b.slot[lane], b.gid[lane]);
+  const int rest = b.count - kWarp;
+  float s = 0.f;
+  int sl = 0, g = 0;
+  if (lane < rest) {
+    s = b.sq[kWarp + lane];
+    sl = b.slot[kWarp + lane];
+    g = b.gid[kWarp + lane];
+  }
+  __syncwarp();
+  b.count = 0;
+  b.push(lane, lane < rest && list.beats(s, sl), s, sl, g);
+  __syncwarp();
+}
+
+// topk_l2's scan (see the header): one query a warp, PPL points a lane a
+// step. kReg: k <= 32, the register list and any number of splits;
+// otherwise the shared-memory list, one point a lane and one split.
+template <int VD, int PPL, bool kReg>
+__global__ void __launch_bounds__(kScanWarps * kWarp, PPL == 2 ? 5 : 1)
+    topk_scan_kernel(const ScanArgs a) {
+  constexpr int kSurv = 2 * kWarp;  // survivors between two merges
+  extern __shared__ unsigned char smem[];
+  __shared__ int s_last;
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int warp = threadIdx.x / kWarp;
+  const int grp = blockIdx.x / a.S;
+  const int split = blockIdx.x - grp * a.S;
+  const int row = grp * kScanWarps + warp;  // the warp's query
+  const bool act = row < a.Q;  // warp-uniform; no early exit (barriers)
+
+  ScanQuery<VD> qs;
+  const float* src = a.q + static_cast<size_t>(act ? row : 0) * a.D;
+  qs.row = src;
+  qs.n = dot_rn(src, src, a.D);
+  if constexpr (VD > 0) {
+#pragma unroll
+    for (int d = 0; d < VD; ++d) qs.c[d] = src[d];
+  }
+  qs.rs = act ? a.r_sq[row] : 0.f;
+
+  RegList reg;
+  Survivors buf;
+  WarpList list;
+  if constexpr (kReg) {
+    reg.init(a.k);
+    float* b = reinterpret_cast<float*>(smem) + warp * kSurv * 3;
+    buf = Survivors{b, reinterpret_cast<int*>(b + kSurv),
+                    reinterpret_cast<int*>(b + 2 * kSurv), 0};
+  } else {
+    float* all_sq = reinterpret_cast<float*>(smem);
+    int* all_slot = reinterpret_cast<int*>(all_sq + kScanWarps * a.k);
+    int* all_gid = all_slot + kScanWarps * a.k;
+    list = WarpList{all_sq + warp * a.k, all_slot + warp * a.k,
+                    all_gid + warp * a.k, a.k};
+    list.init(lane);
+  }
+
+  const int j0 = split * a.split;
+  // D = 2 reads whole steps of padded records; otherwise the split ends at N
+  const int j1 = VD == 2 ? j0 + a.split : min(a.N, j0 + a.split);
+  if (act) {
+    // a step: PPL points a lane (32 * PPL of the split). kReg: a pair can
+    // pass only if its unclamped sq <= lim = min(gate, k-th sq) (the clamp
+    // only raises a negative sq to 0, and 0 <= lim whenever anything can
+    // pass; a dead point's or an empty lane's |p|^2 is +inf); one vote a
+    // step, and only steps with such a pair take the exact test, liveness
+    // included
+    float lim = qs.rs;
+    ArenaPoint<VD> cur[PPL], nxt[PPL];
+    const float4* rec = nullptr;  // D = 2: this lane's next record
+    if constexpr (VD == 2)
+      rec = reinterpret_cast<const float4*>(a.pn) + j0 + lane;
+#pragma unroll
+    for (int p = 0; p < PPL; ++p) {
+      const int j = j0 + p * kWarp + lane;
+      load_point(a, VD == 2 ? rec + p * kWarp : nullptr, j, j < j1, cur[p]);
+    }
+#pragma unroll 2
+    for (int base = j0; base < j1; base += kWarp * PPL) {
+      if constexpr (VD == 2) rec += kWarp * PPL;
+#pragma unroll
+      for (int p = 0; p < PPL; ++p) {  // the next step's points, in flight
+        const int j = base + (PPL + p) * kWarp + lane;
+        load_point(a, VD == 2 ? rec + p * kWarp : nullptr, j, j < j1, nxt[p]);
+      }
+      if constexpr (kReg) {
+        float v[PPL];
+        bool m[PPL];
+        bool any_m = false;
+#pragma unroll
+        for (int p = 0; p < PPL; ++p) {
+          const int j = base + p * kWarp + lane;
+          const float* prow = a.p + static_cast<size_t>(j) * a.D;
+          v[p] = VD > 0 || j < j1 ? expansion<VD>(qs, cur[p], prow, a.D)
+                                  : __int_as_float(0x7f800000);
+          m[p] = v[p] <= lim;
+          any_m |= m[p];
+        }
+        if (__any_sync(kFull, any_m)) {
+#pragma unroll
+          for (int p = 0; p < PPL; ++p) {
+            if (!__any_sync(kFull, m[p])) continue;
+            const int j = base + p * kWarp + lane;
+            const float sq = clamp0(v[p]);
+            buf.push(lane,
+                     m[p] && cur[p].g >= 0 && sq <= qs.rs && reg.beats(sq, j),
+                     sq, j, cur[p].g);
+            if (buf.count >= kWarp) {
+              drain32(buf, lane, reg);
+              lim = fminf(qs.rs, reg.th_sq);
+            }
+          }
+        }
+      } else {  // PPL = 1: the shared-memory list
+        const int j = base + lane;
+        const bool live = j < j1 && cur[0].g >= 0;
+        const float* prow = a.p + static_cast<size_t>(j) * a.D;
+        const float sq = clamp0(
+            VD > 0 || live ? expansion<VD>(qs, cur[0], prow, a.D) : 0.f);
+        const bool valid = live && sq <= qs.rs;
+        list.offer(lane, valid ? sq : __int_as_float(0x7f800000),
+                   valid ? j : kI32Max, valid ? cur[0].g : -1);
+      }
+#pragma unroll
+      for (int p = 0; p < PPL; ++p) cur[p] = nxt[p];
+    }
+    if constexpr (kReg) buf.drain(lane, reg);
+  }
+
+  if (a.S == 1) {
+    if (act) {
+      if constexpr (kReg) {
+        store_reg(a, reg, row, lane);
+      } else {
+        list.store(lane, static_cast<size_t>(row), a.out_sq, a.out_gid,
+                   a.out_slot);
+      }
+    }
+    return;
+  }
+  if constexpr (kReg) {
+    // this split's k-list to the scratch, then the ticket
+    if (act && lane < a.k) {
+      const size_t at = (static_cast<size_t>(row) * a.S + split) * a.k + lane;
+      a.part_sq[at] = reg.sq;
+      a.part_gid[at] = reg.gid;
+      a.part_slot[at] = reg.slot;
+    }
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      const unsigned t = atomicAdd(a.tickets + grp, 1u);
+      s_last = t == static_cast<unsigned>(a.S - 1);
+    }
+    __syncthreads();
+    if (!s_last) return;
+    __threadfence();
+    if (threadIdx.x == 0) a.tickets[grp] = 0u;  // zero for the next launch
+    if (!act) return;
+    // the last block merges each query's S split k-lists
+    const int total = a.S * a.k;
+    reg.init(a.k);
+    const size_t b0 = static_cast<size_t>(row) * total;
+    for (int e0 = 0; e0 < total; e0 += kWarp) {
+      const int e = e0 + lane;
+      float sq = __int_as_float(0x7f800000);
+      int sl = kI32Max, g = -1;
+      if (e < total) {
+        sq = __ldcg(a.part_sq + b0 + e);
+        sl = __ldcg(a.part_slot + b0 + e);
+        g = __ldcg(a.part_gid + b0 + e);
+      }
+      buf.push(lane, reg.beats(sq, sl), sq, sl, g);
+      if (buf.count >= kWarp) drain32(buf, lane, reg);
+    }
+    buf.drain(lane, reg);
+    store_reg(a, reg, row, lane);
+  }
+}
+
+template <int VD, int PPL, bool kReg>
+cudaError_t launch_scan(const ScanArgs& a, int blocks, cudaStream_t stream) {
+  const size_t smem = kReg ? static_cast<size_t>(kScanWarps) * 64 * 12
+                           : static_cast<size_t>(kScanWarps) * a.k * 12;
+  auto kernel = topk_scan_kernel<VD, PPL, kReg>;
+  cudaError_t err = prepare_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, kScanWarps * kWarp, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// ppl: points a lane a step, as the geometry chose (k <= 32: 2; else 1)
+template <int VD>
+cudaError_t launch_scan_vd(const ScanArgs& a, int ppl, int blocks,
+                           cudaStream_t stream) {
+  if (a.k > kWarp) return launch_scan<VD, 1, false>(a, blocks, stream);
+  if (ppl == 2) return launch_scan<VD, 2, true>(a, blocks, stream);
+  return cudaErrorInvalidValue;
 }
 
 template <typename T, bool kScale, int VD>
@@ -580,23 +865,61 @@ int leaf_topk_launch(int dtype, const void* q, const void* cands,
   }
 }
 
-// tile: points per shared-memory tile, chosen by the caller.
+// ppl (points a lane a step: 2; k > 32 needs 1 and one split) and
+// split (arena points per split, a multiple of 32 * ppl) from
+// ../topk_l2.py `scan_geometry`.
+// Scratch from the wrapper: pn, 4 * (S * split + 32 * ppl) words, 16-byte
+// aligned (at D = 2 the point records, else the (N,) |p|^2); with S > 1
+// splits the (Q, S, k) split lists part_* and one zeroed ticket per query
+// group.
 int topk_l2_launch(const void* q, const void* p, const void* gids,
-                   const void* r_sq, int Q, int N, int D, int k, int tile,
-                   void* out_sq, void* out_gid, void* out_slot,
-                   void* stream) {
-  const size_t smem = static_cast<size_t>(tile) * (D + 2) * 4 +
-                      static_cast<size_t>(kScanWarps) * k * 12;
-  cudaError_t err = prepare_smem(topk_l2_kernel, smem);
+                   const void* r_sq, int Q, int N, int D, int k, int ppl,
+                   int split, void* pn, void* part_sq, void* part_gid,
+                   void* part_slot, void* tickets, void* out_sq,
+                   void* out_gid, void* out_slot, void* stream) {
+  if (Q <= 0 || N <= 0 || D <= 0 || k <= 0 || ppl <= 0 || split <= 0 ||
+      split % (kWarp * ppl) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int S = (N + split - 1) / split;
+  const long long groups = (Q + kScanWarps - 1) / kScanWarps;
+  if (groups * S > 0x7fffffffLL ||
+      (k > kWarp && (ppl != 1 || S != 1)) ||
+      (S > 1 && (part_sq == nullptr || tickets == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool v2 = D == 2 && reinterpret_cast<uintptr_t>(pn) % 16 == 0;
+  // D = 2: S whole splits of records and one step more (the last step's
+  // prefetch), all past N dead
+  const int records = v2 ? S * split + kWarp * ppl : N;
+  auto pnorm = v2 ? topk_pnorm_kernel<true> : topk_pnorm_kernel<false>;
+  pnorm<<<(records + 255) / 256, 256, 0, s>>>(
+      static_cast<const float*>(p), static_cast<const int*>(gids), N, D,
+      records, static_cast<float*>(pn));
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (Q + kScanWarps - 1) / kScanWarps;
-  topk_l2_kernel<<<blocks, kScanWarps * kWarp, smem,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(p),
-      static_cast<const int*>(gids), static_cast<const float*>(r_sq), Q, N, D,
-      k, tile, static_cast<float*>(out_sq), static_cast<int*>(out_gid),
-      static_cast<int*>(out_slot));
-  return static_cast<int>(cudaGetLastError());
+  ScanArgs a;
+  a.q = static_cast<const float*>(q);
+  a.p = static_cast<const float*>(p);
+  a.pn = static_cast<const float*>(pn);
+  a.gids = static_cast<const int*>(gids);
+  a.r_sq = static_cast<const float*>(r_sq);
+  a.Q = Q;
+  a.N = N;
+  a.D = D;
+  a.k = k;
+  a.split = split;
+  a.S = S;
+  a.part_sq = static_cast<float*>(part_sq);
+  a.part_gid = static_cast<int*>(part_gid);
+  a.part_slot = static_cast<int*>(part_slot);
+  a.tickets = static_cast<unsigned*>(tickets);
+  a.out_sq = static_cast<float*>(out_sq);
+  a.out_gid = static_cast<int*>(out_gid);
+  a.out_slot = static_cast<int*>(out_slot);
+  const int blocks = static_cast<int>(groups * S);
+  err = v2 ? launch_scan_vd<2>(a, ppl, blocks, s)
+           : launch_scan_vd<0>(a, ppl, blocks, s);
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

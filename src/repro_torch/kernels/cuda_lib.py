@@ -11,6 +11,7 @@ the CPU tests import every module on a machine with no `nvcc`.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -26,6 +27,14 @@ _ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _LOCK = threading.Lock()
 _LIB = None
+# zeroed uint32 ticket counters per (device index, stream handle); the
+# kernels that find their last block with them leave them at 0 again
+_TICKETS: dict = {}
+# counters a stream's buffer holds: topk_l2 takes one per query group when
+# it splits the arena, which it does only for fewer than 264 groups
+# (`topk_l2.scan_geometry`); cov_matvec takes one
+TICKETS = 264
+_SAME_DEVICE = contextlib.nullcontext()
 # what the last build did: seconds, path, nvcc's -Xptxas -v report
 BUILD_INFO: dict = {}
 
@@ -113,6 +122,59 @@ def raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
 
+def ticket_counters(index: int, stream: int, n: int):
+    """A tensor of `TICKETS` zeroed uint32 ticket counters (int32 storage)
+    for launches on `stream` (a CUDA stream handle) on device `index`;
+    raises if `n` > `TICKETS`. A kernel that finds its last block by an
+    atomic ticket resets its counter to 0 before it ends, so the buffer is
+    zeroed once, when it is made, and shared by every later launch on that
+    stream: launches on one stream run in order, and each stream has its
+    own buffer, which is kept for good (never replaced or freed).
+
+    CUDA graphs: a launch captured while its stream's buffer exists uses
+    that buffer, so its graph must be replayed on the capture stream (or
+    never alongside other launches on that stream). Where the buffer does
+    not exist yet, it is made inside the capture (its zeroing replays with
+    the graph) and not kept: the graph owns it."""
+    import torch
+
+    if n > TICKETS:
+        raise ValueError(f"{n} ticket counters asked for, a stream has {TICKETS}")
+    key = (index, stream)
+    buf = _TICKETS.get(key)
+    if buf is not None:
+        return buf
+    with _LOCK:
+        buf = _TICKETS.get(key)
+        if buf is None:
+            buf = torch.zeros(TICKETS, dtype=torch.int32,
+                              device=torch.device("cuda", index))
+            if not torch.cuda.is_current_stream_capturing():
+                _TICKETS[key] = buf
+        return buf
+
+
+def on_device(index: int):
+    """A context that makes device `index` the current one for a launch
+    (the kernels launch on the runtime's current device): nothing to do
+    where it is current already, which saves the device switch's host
+    cost on every call."""
+    import torch
+
+    if index == torch.cuda.current_device():
+        return _SAME_DEVICE
+    return torch.cuda.device(index)
+
+
+def current_stream(index: int) -> int:
+    """The handle of device `index`'s current CUDA stream — the one
+    `torch.cuda.current_stream(index).cuda_stream` names, without making a
+    Stream object (a few microseconds a call on the host)."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _LIB
@@ -125,7 +187,7 @@ def library() -> ctypes.CDLL:
             ]
             lib.leaf_topk_launch.restype = i
             lib.topk_l2_launch.argtypes = [
-                p, p, p, p, i, i, i, i, i, p, p, p, p
+                p, p, p, p, i, i, i, i, i, i, p, p, p, p, p, p, p, p, p
             ]
             lib.topk_l2_launch.restype = i
             lib.pairwise_sq_l2_launch.argtypes = [i, i, p, p, i, i, i, p, p, p]
@@ -134,7 +196,8 @@ def library() -> ctypes.CDLL:
             lib.pairwise_sq_l2_scratch_bytes.restype = ctypes.c_longlong
             lib.pairwise_sq_l2_wide_min_d.argtypes = []
             lib.pairwise_sq_l2_wide_min_d.restype = i
-            lib.cov_matvec_launch.argtypes = [i, p, p, p, i, i, i, i, p, p, p]
+            q = ctypes.c_longlong
+            lib.cov_matvec_launch.argtypes = [i, p, p, p, q, i, i, q, i, p, p, p, p]
             lib.cov_matvec_launch.restype = i
             _LIB = lib
         return _LIB

@@ -5,8 +5,11 @@ and `kernels/ref.py` (their jnp oracles). Each function exists twice
 here:
 
   * a hand-written CUDA kernel (`csrc/topk_l2.cu`), launched by
-    `leaf_topk_cuda` / `topk_cuda`, each of which counts its launches
-    in `LAUNCHES`;
+    `leaf_topk_cuda` / `topk_cuda`, each of which counts its device
+    launches in `LAUNCHES` (one per leaf call; two per `topk_cuda` call:
+    the |p|² pre-pass and the split scan, whose last block per query
+    group merges the split k-lists — it finds itself by an atomic ticket
+    in a per-stream counter, `cuda_lib.ticket_counters`);
   * a plain PyTorch version (`leaf_topk_plain` / `topk_plain`) that
     repeats the kernel's arithmetic operation by operation — so the two
     agree bitwise — used for CPU tensors and as the kernel's referent
@@ -31,6 +34,8 @@ exact euclidean gate `sqrt(sq) <= r` to the k survivors only.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -43,15 +48,25 @@ I32_MAX = int(np.iinfo(np.int32).max)
 # sq < (r*r) * (1 + 1.76 * 2^-23); 2^-20 leaves an 8x margin
 _R2_SLACK = 1.0 + 2.0**-20
 
-# kernel launches since the last reset, per kernel: incremented only
+# device launches since the last reset, per kernel: incremented only
 # where a kernel is launched (never by the plain versions)
 LAUNCHES = {"leaf_topk": 0, "topk_l2": 0}
+# topk_l2's device launches since the last reset, by the call's query count
+LAUNCHES_BY_Q: dict = {}
 
 _LEAF_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_MAX_K = 1024  # the selection list lives in shared memory: 12 B per entry
-# warps (rows or queries) per block, as csrc/topk_l2.cu launches them
+_MAX_K = 1024  # k > 32: the selection list lives in shared memory, 12 B an entry
+_SMEM_MAX = 232_448  # shared memory a block may use on Hopper
+# warps per block, as csrc/topk_l2.cu launches them
 _LEAF_WARPS = 8
 _SCAN_WARPS = 8
+_REG_K = 32             # k up to this: the register list (any split count)
+# topk_l2's split geometry: the scan aims at this many blocks, and splits
+# hold at least this many points
+_SCAN_TARGET_BLOCKS = 264
+_SCAN_MIN_SPLIT = 256
+_SCAN_PPL = 2           # arena points a lane a step (k <= 32)
+_PNORM_THREADS = 256
 
 
 def radius_sq_upper(r: torch.Tensor) -> torch.Tensor:
@@ -69,17 +84,53 @@ def _blocks(rows: int, per_block: int) -> int:
     return (rows + per_block - 1) // per_block
 
 
+def scan_geometry(m: int, n: int, k: int) -> dict:
+    """The split scan's launch geometry, from (Q, N, k) alone: one warp a
+    query, 8 a block, `ppl` points a lane a step, `split` arena points per
+    split (whole steps of 32·ppl), `groups` query groups × `splits` splits
+    = the scan's grid. Small Q splits the arena so that the grid still
+    fills the card (Q = 64, N = 4,096: 8 groups × 16 splits of 256); at
+    Q = 5,300 every query's warp scans the whole arena. k > 32 keeps the
+    shared-memory list: one point a lane, one split."""
+    groups = -(-m // _SCAN_WARPS)
+    if k > _REG_K:
+        ppl, splits = 1, 1
+    else:
+        ppl = _SCAN_PPL
+        splits = max(1, min(-(-_SCAN_TARGET_BLOCKS // groups),
+                            -(-n // _SCAN_MIN_SPLIT)))
+    step = 32 * ppl  # a split is whole steps of 32 lanes × ppl points
+    split = -(-(-(-n // splits)) // step) * step
+    return {"ppl": ppl, "split": split, "groups": groups,
+            "splits": -(-n // split)}
+
+
+def _pre_records(n: int, d: int, geo: dict) -> int:
+    """Records the |p|² pre-pass writes: at D = 2 one 16-byte record per
+    slot of every whole split and of one step more (the last step's
+    prefetch), dead past n; otherwise |p|² of the n points."""
+    return geo["splits"] * geo["split"] + 32 * geo["ppl"] if d == 2 else n
+
+
 def block_plan(m: int, n: int, d: int, k: int) -> dict:
-    """Cost of one `topk_l2` launch (`topk_cuda`) as the CUDA kernel runs
-    it: `blocks` is the grid it launches (one warp per query, 8 per
-    block); `hbm_bytes` is what the function must move — q, p, gids and
-    the gate read once, the (Q, k) triple written once; `flops` is the
-    function's arithmetic — per (query, point) pair the expansion-form
-    dot (2 per dim), |q|²+|p|², 2·dot, the subtraction, the clamp and
-    the radius and k-th-key compares, plus one |q|² and one |p|² each
-    (the kernel recomputes |p|² in every block: not counted)."""
+    """Cost of one `topk_l2` call (`topk_cuda`) as the CUDA kernels run
+    it: `grid` is the blocks of its two launches — the |p|² pre-pass (one
+    thread a point) and the split scan (`scan_geometry`: query groups ×
+    arena splits; the last block of each group also merges the group's
+    split k-lists) — and `blocks` their sum; `hbm_bytes` is what the
+    function must move — q, p, gids and the gate read once, the (Q, k)
+    triple written once; `flops` is the function's arithmetic — per
+    (query, point) pair the expansion-form dot (2 per dim), |q|²+|p|²,
+    2·dot, the subtraction, the clamp and the radius and k-th-key
+    compares, plus one |q|² and one |p|² each. Neither the split k-lists
+    nor their merge is counted: they are the design's, not the
+    function's."""
+    geo = scan_geometry(m, n, k)
+    grid = (_blocks(_pre_records(n, d, geo), _PNORM_THREADS),
+            geo["groups"] * geo["splits"])
     return {
-        "blocks": _blocks(m, _SCAN_WARPS),
+        "grid": grid,
+        "blocks": sum(grid),
         "flops": m * n * (2 * d + 5) + 2 * d * (m + n),
         "hbm_bytes": m * d * 4 + n * d * 4 + n * 4 + m * 4 + m * k * 12,
     }
@@ -240,36 +291,62 @@ def leaf_topk_cuda(q, cands, cgids, r_sq, k: int, cscale=None):
     return out
 
 
-def _scan_tile(d: int, k: int) -> int:
-    """Points per shared-memory tile of the topk_l2 kernel: up to 1024,
-    fewer for wide points, so a block stays within 48 KB."""
-    budget = 48 * 1024 - _SCAN_WARPS * k * 12  # the warps' selection lists
-    tile = min(1024, budget // ((d + 2) * 4)) // 32 * 32
-    if tile < 32:
-        raise ValueError(f"topk_l2: d={d}, k={k} exceed the shared memory")
-    return tile
+def _scan_smem(k: int) -> int:
+    """Dynamic shared memory of the split scan: per warp either its
+    survivor buffer (k <= 32: 64 entries of 12 B) or its k-list (12 B an
+    entry); raises where a block cannot hold it."""
+    per_warp = 64 * 12 if k <= _REG_K else k * 12
+    smem = _SCAN_WARPS * per_warp
+    if smem > _SMEM_MAX:
+        raise ValueError(f"topk_l2: k={k} exceeds the shared memory")
+    return smem
+
+
+@functools.lru_cache(maxsize=256)
+def _scan_launch(m: int, n: int, d: int, k: int):
+    """(ppl, split, groups, splits, scratch words) of one `topk_cuda` call,
+    kept per shape: the Python that computes them costs microseconds a
+    call. Raises where a block cannot hold the k-lists."""
+    geo = scan_geometry(m, n, k)
+    _scan_smem(k)
+    # scratch, one int32 buffer: the pre-pass's records (4 words each),
+    # then with splits > 1 the (m, splits, k) split lists (sq, gid, slot)
+    pre = 4 * _pre_records(n, d, geo)
+    parts = 3 * m * geo["splits"] * k if geo["splits"] > 1 else 0
+    return geo["ppl"], geo["split"], geo["groups"], geo["splits"], pre, parts
 
 
 def topk_cuda(q, p, gids, r_sq, k: int):
-    """Launch the shared-points kernel (same contract as `topk_plain`)."""
+    """Launch the shared-points kernels (same contract as `topk_plain`)."""
     device = p.device
     m, d = q.shape
     n = p.shape[0]
     if not 1 <= k <= _MAX_K:
         raise ValueError(f"topk_l2: k={k} outside [1, {_MAX_K}]")
+    if m == 0 or n == 0 or d == 0:
+        raise ValueError(f"topk_l2: empty input Q={m} N={n} D={d}")
     _check(q, "q", torch.float32, (m, d), device)
     _check(p, "p", torch.float32, (n, d), device)
     _check(gids, "gids", torch.int32, (n,), device)
     _check(r_sq, "r_sq", torch.float32, (m,), device)
+    ppl, split, groups, splits, pre, parts = _scan_launch(m, n, d, k)
     out = _outputs(m, k, device)
+    scratch = torch.empty(pre + parts, dtype=torch.int32, device=device)
+    base = scratch.data_ptr()
+    part = [base + 4 * (pre + i * m * splits * k) if parts else None
+            for i in range(3)]
     lib = cuda_lib.library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+    index = device.index
+    with cuda_lib.on_device(index):
+        stream = cuda_lib.current_stream(index)
+        tickets = (cuda_lib.ticket_counters(index, stream, groups).data_ptr()
+                   if splits > 1 else None)
         err = lib.topk_l2_launch(
             q.data_ptr(), p.data_ptr(), gids.data_ptr(), r_sq.data_ptr(),
-            m, n, d, k, _scan_tile(d, k),
+            m, n, d, k, ppl, split, base, *part, tickets,
             *(o.data_ptr() for o in out), stream,
         )
     cuda_lib.raise_on(err, "topk_l2")
-    LAUNCHES["topk_l2"] += 1
+    LAUNCHES["topk_l2"] += 2  # topk_pnorm_kernel, then topk_scan_kernel
+    LAUNCHES_BY_Q[m] = LAUNCHES_BY_Q.get(m, 0) + 2
     return out

@@ -8,8 +8,10 @@ Marked `cuda`: skipped where there is no card. On a machine with one
 The plain versions repeat each kernel's arithmetic operation by
 operation (explicitly rounded, uncontracted f32, in the kernel's order
 of sums), so every output must be equal — sq, gid and slot of the top-k
-kernels, the pairwise matrix on its narrow route, the covariance matvec
-— no tolerance. The one exception is the pairwise kernel's wide route
+kernels (whose (sq, slot) selection does not depend on how the arena
+is split), the pairwise matrix on its narrow route, the covariance
+matvec (one launch, its last block folding the partials) — no
+tolerance. The one exception is the pairwise kernel's wide route
 (D >= pairwise_l2.WIDE_MIN_D), whose cross term runs on the tensor
 cores: it is held to the expansion form's ceiling instead.
 """
@@ -77,6 +79,96 @@ def test_topk_kernel_equals_plain(dev, n, d, k):
         assert torch.equal(x.cpu(), y)
 
 
+def _arena_case(m, n, d=2, seed=0, r=0.6):
+    """Queries among the arena's points, every 7th slot tombstoned."""
+    rng = np.random.default_rng(seed)
+    p = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+    q = torch.from_numpy(
+        (rng.standard_normal((m, d)) * 1.1).astype(np.float32))
+    g = torch.arange(n, dtype=torch.int32)
+    g[::7] = -1
+    return q, p, g, tk.radius_sq_upper(torch.full((m,), r))
+
+
+def _topk_equal(dev, q, p, g, r_sq, k):
+    want = tk.topk_plain(q, p, g, r_sq, k)
+    got = tk.topk_cuda(q.to(dev), p.to(dev), g.to(dev), r_sq.to(dev), k)
+    for x, y in zip(got, want):
+        assert torch.equal(x.cpu(), y)
+    return want
+
+
+@pytest.mark.parametrize("m,n", [(64, 4096), (5300, 4096), (3, 1), (70, 4097)])
+def test_topk_kernel_split_shapes(dev, m, n):
+    """The main path's shapes (Q = 64 splits the arena 16 ways, Q = 5,300
+    gives each warp four queries over two splits), one point, and ragged
+    query groups and splits."""
+    _topk_equal(dev, *_arena_case(m, n, seed=m + n), 10)
+
+
+@pytest.mark.parametrize("k", [1, 10, 32, 33, 64])
+def test_topk_kernel_k(dev, k):
+    """k <= 32: the register list and the split merge; 33 and 64: the
+    shared-memory list over one split. Both query counts per warp."""
+    for m in (64, 300):
+        want = _topk_equal(dev, *_arena_case(m, 3000, seed=k, r=0.9), k)
+        assert (want[1] >= 0).any()
+
+
+def test_topk_kernel_dead_and_sparse(dev):
+    """An all-tombstoned arena gives the all-padding answer; a small
+    radius leaves rows with fewer than k passing points."""
+    q, p, g, r_sq = _arena_case(64, 4096, seed=3)
+    want = _topk_equal(dev, q, p, torch.full_like(g, -1), r_sq, 10)
+    assert (want[1] == -1).all() and torch.isinf(want[0]).all()
+    r_sq = tk.radius_sq_upper(torch.full((64,), 0.05))
+    want = _topk_equal(dev, q, p, g, r_sq, 10)
+    live = (want[1] >= 0).sum(1)
+    assert (live < 10).any() and (live > 0).any()
+
+
+def _cov_case(n, d, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(
+        (rng.standard_normal((n, d)) * np.linspace(3, 1, d) + 2.0).astype(np.float32))
+    x = x.to(dtype)
+    mean = x.to(torch.float32).mean(0)
+    w = torch.from_numpy(rng.standard_normal(d).astype(np.float32))
+    return x, mean, w
+
+
+def test_ticket_counters_two_streams_and_graphs(dev):
+    """The last-block tickets: calls on two streams at once, and calls
+    captured in a CUDA graph (counters made inside the capture) and
+    replayed twice, all equal to the plain versions."""
+    x, mean, w = _cov_case(70_000, 5, torch.float32, seed=1)
+    q, p, g, r_sq = _arena_case(64, 4096, seed=2)
+    want_y = cm.cov_matvec_plain(x, mean, w)
+    want_t = tk.topk_plain(q, p, g, r_sq, 10)
+    args_c = [t.to(dev) for t in (x, mean, w)]
+    args_t = [t.to(dev) for t in (q, p, g, r_sq)]
+    torch.cuda.synchronize()
+    outs = []
+    for stream in (torch.cuda.Stream(), torch.cuda.Stream()):
+        with torch.cuda.stream(stream):
+            for _ in range(3):
+                outs.append((cm.cov_matvec_cuda(*args_c),
+                             tk.topk_cuda(*args_t, 10)))
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    with torch.cuda.graph(graph, stream=side):
+        captured = (cm.cov_matvec_cuda(*args_c), tk.topk_cuda(*args_t, 10))
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        outs.append(captured)
+    for y, (sq, gid, slot) in outs:
+        assert torch.equal(y.cpu(), want_y)
+        for a, b in zip((sq, gid, slot), want_t):
+            assert torch.equal(a.cpu(), b)
+
+
 def _leaf_equal(dev, args, cscale, k):
     want = tk.leaf_topk_plain(*args, k, cscale=cscale)
     got = tk.leaf_topk_cuda(
@@ -136,6 +228,11 @@ def test_launches_are_counted(dev):
     tk.leaf_topk_plain(*args, 3)
     assert tk.LAUNCHES["leaf_topk"] == before["leaf_topk"] + 1
     assert tk.LAUNCHES["topk_l2"] == before["topk_l2"]
+    q, p, g, r_sq = _arena_case(64, 500)
+    tk.topk_cuda(q.to(dev), p.to(dev), g.to(dev), r_sq.to(dev), 5)
+    # the |p|² pre-pass and the split scan
+    assert tk.LAUNCHES["topk_l2"] == before["topk_l2"] + 2
+    assert tk.LAUNCHES_BY_Q[64] >= 2
 
 
 def _expansion_tol(q, p) -> float:
@@ -196,19 +293,30 @@ def test_pairwise_routes(dev, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
-    "n,d", [(1, 1), (10, 2), (517, 130), (1024, 64), (70_000, 3), (300, 300)]
+    "n,d", [(1, 1), (10, 2), (517, 130), (1024, 64), (70_000, 3), (300, 300),
+            (257, 3), (500_000, 2), (100_000, 64), (33, 2048)]
 )
 def test_cov_matvec_kernel_equals_plain(dev, dtype, n, d):
-    rng = np.random.default_rng(n + d)
-    x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32) + 2.0)
-    x = x.to(dtype)
-    mean = x.to(torch.float32).mean(0)
-    w = torch.from_numpy(rng.standard_normal(d).astype(np.float32))
+    """Edge shapes and chip_smoke's two: one device launch a call,
+    bitwise equal to the plain version and across two runs."""
+    x, mean, w = _cov_case(n, d, dtype, seed=n + d)
     want = cm.cov_matvec_plain(x, mean, w)
     xd, md, wd = x.to(dev), mean.to(dev), w.to(dev)
+    before = cm.LAUNCHES["cov_matvec"]
     got = cm.cov_matvec_cuda(xd, md, wd)
+    assert cm.LAUNCHES["cov_matvec"] == before + 1
     assert torch.equal(got.cpu(), want)
     assert torch.equal(cm.cov_matvec_cuda(xd, md, wd), got)  # no atomics
+
+
+def test_cov_matvec_rows_wider_than_2048_raise(dev):
+    """The kernel keeps at most eight columns a thread (D <= 2,048,
+    `cov_matvec._MAX_D`); wider rows raise instead of launching."""
+    x = torch.zeros((4, 2049), device=dev)
+    before = cm.LAUNCHES["cov_matvec"]
+    with pytest.raises(ValueError, match="D=2049"):
+        cm.cov_matvec_cuda(x, x[0].clone(), x[0].clone())
+    assert cm.LAUNCHES["cov_matvec"] == before
 
 
 def test_primitive_launches_are_counted(dev):
@@ -218,5 +326,5 @@ def test_primitive_launches_are_counted(dev):
     ops.power_iteration(x, iters=5, generator=torch.Generator(device=dev).manual_seed(0))
     ops.pairwise_sq_l2(x.cpu(), x[:7].cpu())  # plain version: not counted
     counts = ops.launch_counts()
-    # two device launches per cov_matvec call: partials, then the reduction
-    assert counts["pairwise_sq_l2"] == 1 and counts["cov_matvec"] == 2 * 5
+    # one device launch per cov_matvec call (the last block folds)
+    assert counts["pairwise_sq_l2"] == 1 and counts["cov_matvec"] == 5

@@ -31,6 +31,7 @@ from repro_torch.core import first_component_exact
 from repro_torch.kernels import cov_matvec as cm
 from repro_torch.kernels import ops
 from repro_torch.kernels import pairwise_l2 as pw
+from repro_torch.kernels import topk_l2 as tk
 
 _DTYPES = {
     "float32": (jnp.float32, torch.float32),
@@ -156,6 +157,22 @@ def test_power_iteration_degenerate_returns_start_vector():
     assert torch.equal(w, w0 / torch.linalg.vector_norm(w0))
 
 
+def test_split_groups_fit_one_stream_of_tickets():
+    """topk_l2 splits the arena only for fewer query groups than a
+    stream's ticket buffer holds (one counter a group), so the buffer is
+    never too short and is never replaced."""
+    from repro_torch.kernels import cuda_lib
+
+    widest = 0
+    for m in list(range(1, 2200, 3)) + [2104, 2105, 2111, 2112, 2113, 5300]:
+        for n in (1, 257, 4096, 65_536):
+            for k in (1, 10, 32, 33):
+                geo = tk.scan_geometry(m, n, k)
+                if geo["splits"] > 1:
+                    widest = max(widest, geo["groups"])
+    assert widest == cuda_lib.TICKETS - 1
+
+
 def test_plans_and_launch_counts():
     plan = pw.block_plan(130, 65, 3, itemsize=2)
     assert plan["route"] == "cuda_core" and plan["tile"] == (64, 256)
@@ -168,11 +185,23 @@ def test_plans_and_launch_counts():
     assert pw.route(pw.WIDE_MIN_D - 1) == "cuda_core"
     assert plan["flops"] == 2 * 130 * 65 * 3 + 2 * (130 + 65) * 3
     assert plan["hbm_bytes"] == (130 + 65) * 3 * 2 + 4 * 130 * 65
+    # one launch: 245 blocks of one 2,048-row tile each (128 row groups);
+    # the last block to finish folds the partials
     rows, blocks, groups = cm.geometry(500_000, 2)
     assert (rows, blocks, groups) == (2048, 245, 128)
+    assert cm.tile_rows(2) == 2048 and cm.geometry(100_000, 64) == (384, 261, 4)
+    assert cm.row_lanes(2) == 1 and cm.row_lanes(64) == 4
     assert cm.block_plan(500_000, 2) == {
-        "blocks": 245 + 2, "flops": 4 * 500_000 * 2, "hbm_bytes": 500_000 * 2 * 4 + 24
+        "blocks": 245, "flops": 4 * 500_000 * 2, "hbm_bytes": 500_000 * 2 * 4 + 24
     }
+    # topk_l2: the |p|² pre-pass, then query groups × arena splits
+    assert tk.scan_geometry(64, 4096, 10) == {
+        "ppl": 2, "split": 256, "groups": 8, "splits": 16}
+    assert tk.scan_geometry(5300, 4096, 10) == {
+        "ppl": 2, "split": 4096, "groups": 663, "splits": 1}
+    assert tk.scan_geometry(64, 4096, 33)["splits"] == 1
+    # D = 2: 4,096 records + one step of 64 for the prefetch: 17 blocks
+    assert tk.block_plan(64, 4096, 2, 10)["grid"] == (17, 8 * 16)
     ops.reset_launch_counts()
     ops.pairwise_sq_l2(torch.ones(3, 2), torch.zeros(4, 2))
     ops.power_iteration(torch.rand(20, 3), iters=2)
