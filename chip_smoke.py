@@ -38,9 +38,12 @@ Phases, in order; any failure raises and the script exits non-zero:
                    paper shape takes the narrow route: bitwise equal);
                (c) `power_iteration` (16 steps) at 500,000 x 2 and at
                    100,000 x 64 (columns scaled 5, 2, 1, ...): |cos| >
-                   0.999 against the exact eigenvector; `cov_matvec` (one
-                   launch a call) bitwise equal to its plain version, and
-                   run twice gives the same y bitwise;
+                   0.999 against the exact eigenvector; at 4,096 x 2,049
+                   and 4,096 x 12,032 (cov_matvec's wide-row route) |cos|
+                   > 0.9999 against the same 16 steps in f64; `cov_matvec`
+                   (one launch a call) bitwise equal to its plain version
+                   at all four shapes, f32 and bf16, and run twice gives
+                   the same y bitwise;
                (d) the quickstart's 20,000 points built by the host
                    builder (`core.build(backend="host")`), searched on the
                    card by `core.search`: ids equal to `brute`, node
@@ -48,6 +51,34 @@ Phases, in order; any failure raises and the script exits non-zero:
                    constrained vs knn-then-filter node counts.
                Then kernel / plain / library times and bounds of both
                primitive kernels.
+  5. serve   — the durable serving tier, on the main path's data and
+               configuration:
+               (a) a WAL in a temporary directory (auto_checkpoint on,
+                   wal_sync off); bulk-load 250,000, stream 250,000 in
+                   batches of 2,000 with phase 3's deletes and no queries,
+                   one checkpoint() midway (the inline-merge stream
+                   reaches no compact()/maintain() point, where
+                   auto_checkpoint fires); the 5,300 queries; close();
+                   then a fresh index on the same files (the recovery):
+                   live gid set equal, all 5,300 answers bitwise equal to
+                   the pre-close ones, ids equal to the brute referent;
+                   inserts/s with the WAL on, recovery seconds,
+                   checkpoint loads, WAL records replayed, WAL and
+                   checkpoint bytes;
+               (b) `SearchFrontend(k=10, r, max_batch=64)` over the
+                   recovered index, warmed up; 8 client threads each
+                   submit 64 of the queries synchronously: every reply
+                   bitwise equal to the direct answer, every dispatch in
+                   the pow2 class set; p50 / p99 submit->resolve latency,
+                   qps, mean occupancy, dispatches per class, warm-up
+                   seconds, phase 1's share of the engine's host time,
+                   and the read-path kernels' launches (counted from 0
+                   after the warm-up, read after stop()) by call shape;
+                   then each of those kernels at every call shape the
+                   serving run gave it (Q = 1 and 8 arena scans with
+                   their splits and last-block merge, the leaf scans of
+                   1- and 8-query dispatches) against its plain version,
+                   bitwise, with its times and bound.
 
 Kernel times ("ms") are CUDA-event means over back-to-back eager calls
 through the wrapper, what the port pays. For the two launch-bound
@@ -66,6 +97,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
@@ -94,10 +126,14 @@ PAIR_REPLACES = "src/repro/kernels/pairwise_l2.py:77"  # _kernel
 COV_SRC = "src/repro_torch/kernels/csrc/cov_matvec.cu"
 COV_REPLACES = "src/repro/kernels/cov_matvec.py:25"    # _kernel
 # phase 4's shapes: the wide pairwise (M, N, D), the wide power iteration
-# (N, D), and the host path's point count (the quickstart's)
+# (N, D), cov_matvec's wide-row route (N, D > 2,048), and the host path's
+# point count (the quickstart's)
 PAIR_WIDE = (4096, 65536, 128)
 COV_WIDE = (100_000, 64)
+COV_ROWS = ((4096, 2049), (4096, 12_032))
 HOST_POINTS = 20_000
+# phase 5: client threads and synchronous requests each
+SERVE_CLIENTS, SERVE_PER_CLIENT = 8, 64
 
 
 def log(*a):
@@ -197,7 +233,12 @@ def _pow2_scales(c: torch.Tensor, group: int) -> torch.Tensor:
     return sc.repeat_interleave(group, dim=1).contiguous()
 
 
-def check_leaf(dev, gen, rows=5300 * 4, c=2048, d=2, kp=18):
+def _leaf_case(dev, gen, rows, c, d, kp, name, reps=20):
+    """leaf_topk at one shape and storage type, on random candidates
+    around random queries with 10% dead slots and the gate r = 0.25:
+    (sq, gid, slot) bitwise equal to the plain version (the kernel
+    repeats its arithmetic, and the (sq, slot) keys are unique); kernel
+    and plain times, the bound."""
     from repro_torch.kernels import topk_l2 as tk
 
     q = (torch.rand((rows, d), generator=gen, device=dev) * 8.0 - 4.0)
@@ -206,53 +247,49 @@ def check_leaf(dev, gen, rows=5300 * 4, c=2048, d=2, kp=18):
     gids = torch.arange(rows * c, device=dev, dtype=torch.int32).reshape(rows, c)
     gids = torch.where(torch.rand((rows, c), generator=gen, device=dev) < 0.1,
                        torch.full_like(gids, -1), gids)
-    r = torch.full((rows,), 0.25, device=dev)
-    r_sq = tk.radius_sq_upper(r)
+    r_sq = tk.radius_sq_upper(torch.full((rows,), 0.25, device=dev))
+    kw = {}
+    if name == "int8":
+        sc = _pow2_scales(cands, 32)
+        store = torch.clamp(torch.round(cands / sc[:, :, None]), -127, 127)
+        store = store.to(torch.int8).contiguous()
+        kw = {"cscale": sc}
+    else:
+        store = cands.to(getattr(torch, name)).contiguous()
+    args = (q, store, gids, r_sq, kp)
+    got = tk.leaf_topk_cuda(*args, **kw)
+    want = tk.leaf_topk_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for what, x, y in zip(("sq", "gid", "slot"), got, want):
+        if not torch.equal(x, y):
+            bad = (x != y).any(1).nonzero()[:4, 0].tolist()
+            raise AssertionError(
+                f"leaf_topk[{name}] R={rows} C={c} {what} differs, rows {bad}")
+    ms = time_ms(lambda: tk.leaf_topk_cuda(*args, **kw), reps=reps)
+    plain_ms = time_ms(lambda: tk.leaf_topk_plain(*args, **kw), reps=3, warmup=1)
+    # the bytes and operations the function needs: q, candidates at
+    # their storage width (+ int8 scales), gids and gate read once, the
+    # (R, k') triple written once (topk_l2.leaf_block_plan)
+    plan = tk.leaf_block_plan(rows, c, d, kp, itemsize=store.element_size())
+    bound_ms, bound_by = _bound(plan)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "hbm_bytes": plan["hbm_bytes"],
+            "max_abs_err": 0.0}
+
+
+def check_leaf(dev, gen, rows=5300 * 4, c=2048, d=2, kp=18):
     variants = {}
     for name in ("bfloat16", "int8", "float32"):
-        if name == "int8":
-            sc = _pow2_scales(cands, 32)
-            store = torch.clamp(torch.round(cands / sc[:, :, None]), -127, 127)
-            store = store.to(torch.int8).contiguous()
-            args = (q, store, gids, r_sq, kp)
-            kw = {"cscale": sc}
-            itemsize = 1
-        else:
-            dt = getattr(torch, name)
-            store = cands.to(dt).contiguous()
-            args = (q, store, gids, r_sq, kp)
-            kw = {}
-            itemsize = store.element_size()
-        got = tk.leaf_topk_cuda(*args, **kw)
-        want = tk.leaf_topk_plain(*args, **kw)
-        torch.cuda.synchronize()
-        # bitwise: sq, gid and slot (the kernel repeats the plain
-        # version's arithmetic, and the (sq, slot) keys are unique)
-        for what, x, y in zip(("sq", "gid", "slot"), got, want):
-            if not torch.equal(x, y):
-                bad = (x != y).any(1).nonzero()[:4, 0].tolist()
-                raise AssertionError(f"leaf_topk[{name}] {what} differs, rows {bad}")
-        err = 0.0
-        ms = time_ms(lambda: tk.leaf_topk_cuda(*args, **kw), reps=20)
-        plain_ms = time_ms(lambda: tk.leaf_topk_plain(*args, **kw), reps=3, warmup=1)
-        # the bytes and operations the function needs: q, candidates at
-        # their storage width (+ int8 scales), gids and gate read once,
-        # the (R, k') triple written once (topk_l2.leaf_block_plan)
-        plan = tk.leaf_block_plan(rows, c, d, kp, itemsize=itemsize)
-        bound_ms, bound_by = _bound(plan)
-        variants[name] = {
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by,
-            "hbm_bytes": plan["hbm_bytes"], "max_abs_err": err,
-        }
+        v = variants[name] = _leaf_case(dev, gen, rows, c, d, kp, name)
         log(f"kernel leaf_topk[{name}] R={rows} C={c} D={d} k'={kp}: "
-            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"bound_ms={bound_ms:.5f} ({plan['hbm_bytes']} B) "
+            f"kernel_ms={v['ms']:.4f} plain_ms={v['plain_ms']:.4f} "
+            f"bound_ms={v['bound_ms']:.5f} ({v['hbm_bytes']} B) "
             f"outputs bitwise equal to the plain version")
     return variants, 0.0
 
 
-def check_scan(dev, pts, queries, r, shapes=((64, 4096), (5300, 4096)), k=10):
+def check_scan(dev, pts, queries, r, shapes=((64, 4096), (5300, 4096)), k=10,
+               label="kernel"):
     """topk_l2 at the main path's shapes — Q = 64 (the 64-query batches
     against the whole 4,096-slot arena) and Q = 5,300 (the final pass) —
     every 7th arena slot tombstoned: (sq, gid, slot) bitwise equal to the
@@ -292,7 +329,7 @@ def check_scan(dev, pts, queries, r, shapes=((64, 4096), (5300, 4096)), k=10):
         plan = tk.block_plan(nq, n, 2, k)
         bound_ms, bound_by = _bound(plan)
         found = int((want[1] >= 0).sum())
-        log(f"kernel topk_l2 Q={nq} N={n} D=2 k={k} blocks={plan['blocks']}: "
+        log(f"{label} topk_l2 Q={nq} N={n} D=2 k={k} blocks={plan['blocks']}: "
             f"kernel_ms={ms:.5f} graph_ms={graph_ms:.5f} host_ms={host_ms:.5f} "
             f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by}) "
             f"library_ms={library_ms:.4f}; (sq, gid, slot) bitwise equal to "
@@ -427,6 +464,59 @@ def profile_pass(fn) -> dict:
     }
 
 
+def check_referent(res, bd, bg, what):
+    """ids equal to the brute referent's, the same fill pattern, and
+    distances within 1e-6 of its largest."""
+    if not np.array_equal(bg.astype(np.int64), res.gids):
+        bad = np.nonzero((bg != res.gids).any(1))[0]
+        raise AssertionError(
+            f"{what}: {len(bad)} query rows differ from the brute referent, "
+            f"e.g. {bad[:3].tolist()}: {res.gids[bad[0]]} vs {bg[bad[0]]}")
+    fin = np.isfinite(bd)
+    if not np.array_equal(fin, np.isfinite(res.distances)):
+        raise AssertionError(f"{what}: fill pattern differs from the brute referent")
+    derr = float(np.abs(res.distances[fin] - bd[fin]).max()) if fin.any() else 0.0
+    if derr > 1e-6 * float(np.abs(bd[fin]).max()):
+        raise AssertionError(f"{what}: distances differ from the referent by {derr}")
+    return derr
+
+
+INGEST_BATCH = 2_000
+
+
+def ingest(idx, pts, after_bulk=None, after_add=None) -> dict:
+    """The main path's ingest, shared by phases 3 and 5: bulk-load the
+    first half of `pts`, then stream the rest in batches of INGEST_BATCH;
+    after every 4th batch delete a tenth of a batch's count, drawn from
+    the live set (rng seed 0). `after_bulk()` runs once after the bulk
+    load, `after_add(b, batches)` after batch b's add, before its
+    deletes; neither is in the timed insert seconds."""
+    n = len(pts)
+    n_prefill = n // 2
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    idx.bulk_load(pts[:n_prefill])
+    t_bulk = time.perf_counter() - t0
+    if after_bulk is not None:
+        after_bulk()
+    starts = range(n_prefill, n, INGEST_BATCH)
+    t_insert, n_deleted = 0.0, 0
+    for b, lo in enumerate(starts):
+        t0 = time.perf_counter()
+        gids = idx.add(pts[lo:lo + INGEST_BATCH])
+        torch.cuda.synchronize()
+        t_insert += time.perf_counter() - t0
+        if after_add is not None:
+            after_add(b, len(starts))
+        if b % 4 == 3:
+            victims = rng.choice(idx.live_gids(), size=len(gids) // 10,
+                                 replace=False)
+            n_deleted += idx.delete(victims)
+    return {"bulk_s": t_bulk, "insert_s": t_insert, "prefill": n_prefill,
+            "inserted": n - n_prefill, "deleted": n_deleted,
+            "batches": len(starts)}
+
+
 def run_main(dev, pts, queries, r):
     from repro_torch import obs
     from repro_torch.core import TreeSpec
@@ -434,51 +524,37 @@ def run_main(dev, pts, queries, r):
     from repro_torch.kernels import ops
     from repro_torch.kernels import topk_l2 as tk
 
-    k, q_batch, batch = 10, 64, 2_000
+    k, q_batch = 10, 64
     n = len(pts)
-    n_prefill = n // 2
     spec = TreeSpec.ballstar(leaf_size=32)
-    check_determinism(pts[:n_prefill], spec, dev)
+    check_determinism(pts[:n // 2], spec, dev)
 
     idx = StreamingIndex(StreamingConfig(
         dim=2, delta_capacity=4096, spec=spec, merge_factor=4,
         storage_dtype="bfloat16", device=dev))
-    rng = np.random.default_rng(0)
     obs.REGISTRY.reset()
     ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    idx.bulk_load(pts[:n_prefill])
-    t_bulk = time.perf_counter() - t0
-    log(f"main: bulk_load {n_prefill} points in {t_bulk:.3f} s")
-    # one query batch before the timed stream: first-call costs (CUDA
-    # context work, the kernel library's load) are set-up, not latency
-    t0 = time.perf_counter()
-    idx.constrained_knn(queries[:q_batch], k, r)
-    log(f"main: first query batch (warm-up) {time.perf_counter() - t0:.3f} s")
-
-    t_insert = 0.0
-    n_inserted = n_deleted = 0
     lat = []
-    qi = 0
-    for lo in range(n_prefill, n, batch):
-        chunk = pts[lo:lo + batch]
+
+    def warm_up():
+        # one query batch before the timed stream: first-call costs (CUDA
+        # context work, the kernel library's load) are set-up, not latency
         t0 = time.perf_counter()
-        gids = idx.add(chunk)
-        torch.cuda.synchronize()
-        t_insert += time.perf_counter() - t0
-        n_inserted += len(chunk)
-        off = qi % (len(queries) - q_batch)
-        qi += q_batch
+        idx.constrained_knn(queries[:q_batch], k, r)
+        log(f"main: first query batch (warm-up) {time.perf_counter() - t0:.3f} s")
+
+    def query_batch(b, _batches):
+        off = (b * q_batch) % (len(queries) - q_batch)
         t0 = time.perf_counter()
         idx.constrained_knn(queries[off:off + q_batch], k, r)  # host results
         lat.append(time.perf_counter() - t0)
-        if (lo - n_prefill) // batch % 4 == 3:
-            live = idx.live_gids()
-            victims = rng.choice(live, size=len(gids) // 10, replace=False)
-            n_deleted += idx.delete(victims)
+
+    ing = ingest(idx, pts, after_bulk=warm_up, after_add=query_batch)
+    t_bulk, t_insert, n_inserted = ing["bulk_s"], ing["insert_s"], ing["inserted"]
+    log(f"main: bulk_load {ing['prefill']} points in {t_bulk:.3f} s")
     st = idx.stats()
     log(f"main: streamed {n_inserted} points in {len(lat)} batches, "
-        f"deleted {n_deleted}; segments={st['n_segments']} "
+        f"deleted {ing['deleted']}; segments={st['n_segments']} "
         f"delta_fill={st['delta_fill']} seals={st['seals']} "
         f"merges={st['tiered_merges'] + st['purge_merges']}")
 
@@ -487,7 +563,7 @@ def run_main(dev, pts, queries, r):
     res = idx.constrained_knn(queries, k, r)
     t_full = time.perf_counter() - t0
     launches = ops.launch_counts()
-    by_q = dict(sorted(tk.LAUNCHES_BY_Q.items()))
+    by_q = tk.launches_by_q()
     counters = obs.snapshot()["counters"]
     fused_used = counters.get("engine.fused_traversal{kind=used}", 0)
     n_query_batches = len(lat) + 2  # + the warm-up batch and this pass
@@ -511,18 +587,9 @@ def run_main(dev, pts, queries, r):
     log("main: host syncs of one pass " + json.dumps(syncs))
 
     bd, bg = brute_referent(idx, queries, k, r, dev)
-    if not np.array_equal(bg.astype(np.int64), res.gids):
-        bad = np.nonzero((bg != res.gids).any(1))[0]
-        raise AssertionError(
-            f"{len(bad)} query rows differ from the brute referent, e.g. "
-            f"{bad[:3].tolist()}: {res.gids[bad[0]]} vs {bg[bad[0]]}")
+    derr = check_referent(res, bd, bg, "main")
     fin = np.isfinite(bd)
-    if not np.array_equal(fin, np.isfinite(res.distances)):
-        raise AssertionError("fill pattern differs from the brute referent")
-    derr = float(np.abs(res.distances[fin] - bd[fin]).max()) if fin.any() else 0.0
-    if derr > 1e-6 * float(np.abs(bd[fin]).max()):
-        raise AssertionError(f"distances differ from the referent by {derr}")
-    if not np.isfinite(res.distances).any():
+    if not fin.any():
         raise AssertionError("no query found a neighbor")
     log(f"main: {len(queries)} x k={k} results == brute referent "
         f"(ids equal, max |dist diff| {derr}), "
@@ -642,14 +709,14 @@ def check_cov(name, x, reps=50):
     plain_ms = time_ms(lambda: cm.cov_matvec_plain(x, mean, w), reps=3, warmup=1)
     bound_ms, bound_by = _bound(cm.block_plan(n, d, x.element_size()))
     rows, blocks, groups = cm.geometry(n, d)
-    log(f"kernel cov_matvec[{name}] N={n} D={d} {x.dtype} blocks={blocks} "
-        f"rows_per_block={rows}, one launch a call: kernel_ms={ms:.5f} "
+    log(f"kernel cov_matvec[{name}] N={n} D={d} {x.dtype} route={cm.route(d)} "
+        f"blocks={blocks} rows_per_block={rows}, one launch a call: kernel_ms={ms:.5f} "
         f"graph_ms={graph_ms:.5f} host_ms={host_ms:.5f} plain_ms={plain_ms:.4f} "
         f"bound_ms={bound_ms:.5f} ({bound_by}); bitwise equal to the plain "
         f"version and across two runs")
     return {"ms": ms, "graph_ms": graph_ms, "host_ms": host_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "max_abs_err": 0.0, "blocks": blocks}
+            "max_abs_err": 0.0, "blocks": blocks, "route": cm.route(d)}
 
 
 def check_dn_f64(lb, q, tree, rows):
@@ -715,14 +782,33 @@ def host_path(dev):
     return out
 
 
+def scaled_normal(shape, gen, dev):
+    """Normal columns scaled 5, 2, 1, 1, ... (from `gen`): one dominant
+    direction for the power iteration."""
+    scale = torch.ones(shape[1], device=dev)
+    scale[0], scale[1] = 5.0, 2.0
+    return torch.randn(shape, generator=gen, device=dev) * scale
+
+
 def cov_inputs(dev, pts, gen):
     """power_iteration's and cov_matvec's two inputs: the root split (the
-    points, 500,000 x 2) and 100,000 x 64 normal columns scaled 5, 2, 1,
-    ... (from `gen`)."""
+    points, 500,000 x 2) and 100,000 x 64 scaled normal columns."""
     x_root = torch.from_numpy(pts.astype(np.float32)).to(dev)
-    scale = torch.ones(COV_WIDE[1], device=dev)
-    scale[0], scale[1] = 5.0, 2.0
-    return x_root, torch.randn(COV_WIDE, generator=gen, device=dev) * scale
+    return x_root, scaled_normal(COV_WIDE, gen, dev)
+
+
+def power_iteration_f64(x, iters, seed):
+    """`ops.power_iteration`'s steps in f64 on the card, from the same
+    start vector (a generator seeded `seed`): the yardstick for rows too
+    wide for an exact host eigensolver."""
+    g = torch.Generator(device=x.device).manual_seed(seed)
+    w = torch.randn(x.shape[1], generator=g, device=x.device).double()
+    w = w / torch.linalg.vector_norm(w)
+    xc = x.double() - x.double().mean(0)
+    for _ in range(iters):
+        v = xc.T @ (xc @ w)
+        w = v / torch.linalg.vector_norm(v)
+    return w
 
 
 def run_primitives(dev, pts, queries):
@@ -743,6 +829,8 @@ def run_primitives(dev, pts, queries):
             for name, dt in (("wide_f32", torch.float32),
                              ("wide_bf16", torch.bfloat16))}
     x_root, x_wide = cov_inputs(dev, pts, gen)
+    gen_rows = torch.Generator(device=dev).manual_seed(1)  # gen's draws as before
+    x_rows = {d: scaled_normal((n, d), gen_rows, dev) for n, d in COV_ROWS}
     torch.cuda.synchronize()
 
     # the path: every call through the public wrappers, counts from 0
@@ -752,6 +840,9 @@ def run_primitives(dev, pts, queries):
         ops.pairwise_sq_l2(a, b)
     w_root = ops.power_iteration(x_root, iters=16, generator=gen)
     w_wide = ops.power_iteration(x_wide, iters=16, generator=gen)
+    w_rows = {d: ops.power_iteration(
+        x, iters=16, generator=torch.Generator(device=dev).manual_seed(7))
+        for d, x in x_rows.items()}
     host = host_path(dev)
     torch.cuda.synchronize()
     launches = ops.launch_counts()
@@ -792,15 +883,246 @@ def run_primitives(dev, pts, queries):
         if not cos[name] > 0.999:
             raise AssertionError(f"power_iteration[{name}] |cos| {cos[name]}")
     log(f"primitives: power_iteration |cos| vs first_component_exact {cos}")
+    # rows wider than 2,048 (cov_matvec's wide route): against the same
+    # 16 steps in f64 from the same start vector
+    for d, x in x_rows.items():
+        c = abs(float(torch.dot(w_rows[d].double(), power_iteration_f64(x, 16, 7))))
+        cos[f"d{d}_vs_f64_steps"] = c
+        if not c > 0.9999:
+            raise AssertionError(f"power_iteration[D={d}] |cos| vs f64 steps {c}")
+    log(f"primitives: power_iteration on {x_rows[COV_ROWS[0][1]].shape[0]} rows of "
+        f"D = {sorted(x_rows)}: |cos| vs the f64 steps "
+        f"{[cos[f'd{d}_vs_f64_steps'] for d in sorted(x_rows)]}")
     cov = {"root": check_cov("root", x_root), "wide": check_cov("wide", x_wide),
            "root_bf16": check_cov("root_bf16", x_root.to(torch.bfloat16)),
            "wide_bf16": check_cov("wide_bf16", x_wide.to(torch.bfloat16))}
+    for d, x in x_rows.items():
+        cov[f"d{d}"] = check_cov(f"d{d}", x, reps=20)
+        cov[f"d{d}_bf16"] = check_cov(f"d{d}_bf16", x.to(torch.bfloat16), reps=20)
+    del x_rows
+    torch.cuda.empty_cache()
     log("primitives: summary " + json.dumps({
         "n_nodes": tree.n_nodes, "lower_bounds_err_vs_plain": lb_err,
         "lower_bounds_err_vs_f64": dn_err, "pairwise": pair,
         "power_iteration_cos": cos, "cov_matvec": cov, "host_path": host,
         "launches": launches}))
     return launches, pair, cov
+
+
+# -- phase 5: the durable serving tier -------------------------------------------
+def run_durable(dev, pts, queries, r, tmp):
+    """(a) the main path's ingest with the WAL on, one checkpoint midway,
+    the 5,300 queries, close(); then recovery from the files into a fresh
+    index, whose answers must equal the pre-close ones bitwise and the
+    brute referent's ids. Returns the recovered index and its answers."""
+    from repro_torch.core import TreeSpec
+    from repro_torch.index import StreamingConfig, StreamingIndex
+
+    k = 10
+    n = len(pts)
+    cfg = StreamingConfig(
+        dim=2, delta_capacity=4096, spec=TreeSpec.ballstar(leaf_size=32),
+        merge_factor=4, storage_dtype="bfloat16", device=dev,
+        wal_path=os.path.join(tmp, "main.wal"), auto_checkpoint=True)
+    idx = StreamingIndex(cfg)
+    t_ckpt = None
+
+    def checkpoint_midway(b, batches):
+        # the inline-merge stream reaches no compact()/maintain() merge
+        # point, where auto_checkpoint fires: one checkpoint on demand
+        nonlocal t_ckpt
+        if b == batches // 2:
+            t0 = time.perf_counter()
+            idx.checkpoint()
+            t_ckpt = time.perf_counter() - t0
+
+    ing = ingest(idx, pts, after_add=checkpoint_midway)
+    t_bulk, t_insert, n_deleted = ing["bulk_s"], ing["insert_s"], ing["deleted"]
+    st = idx.stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    before = idx.constrained_knn(queries, k, r)
+    t_pass = time.perf_counter() - t0
+    live_before = idx.live_gids()
+    idx.close()
+    wal_bytes = os.path.getsize(cfg.wal_path)
+    ckpt_bytes = os.path.getsize(cfg.wal_path + ".ckpt")
+
+    t0 = time.perf_counter()
+    rec = StreamingIndex(cfg)
+    torch.cuda.synchronize()
+    t_recover = time.perf_counter() - t0
+    rs = rec.stats()
+    if not np.array_equal(rec.live_gids(), live_before):
+        raise AssertionError("recovered live gid set differs from the pre-close one")
+    after = rec.constrained_knn(queries, k, r)
+    for what, x, y in (("ids", after.gids, before.gids),
+                       ("distances", after.distances, before.distances)):
+        if not np.array_equal(x, y):
+            bad = np.nonzero((x != y).any(1))[0]
+            raise AssertionError(f"recovered {what} differ from the pre-close "
+                                 f"answers in {len(bad)} rows, e.g. {bad[:3].tolist()}")
+    bd, bg = brute_referent(rec, queries, k, r, dev)
+    derr = check_referent(after, bd, bg, "recovered index")
+    if rs["checkpoint_loads"] != 1 or rs["wal_replayed"] <= 0:
+        raise AssertionError(f"recovery did not read checkpoint + tail: {rs}")
+    summary = {
+        "n_points": n, "n_deleted": n_deleted, "wal_sync": cfg.wal_sync,
+        "bulk_load_s": t_bulk,
+        "inserts_per_s_wal_on": ing["inserted"] / t_insert,
+        "checkpoint_s": t_ckpt, "queries_5300_s": t_pass,
+        "wal_records_written": st["wal_records"],
+        "wal_records_truncated": st["wal_records_truncated"],
+        "wal_bytes": wal_bytes, "checkpoint_bytes": ckpt_bytes,
+        "recovery_s": t_recover, "checkpoint_loads": rs["checkpoint_loads"],
+        "wal_records_replayed": rs["wal_replayed"],
+        "segments": rs["n_segments"], "n_live": rs["n_live"],
+        "max_abs_dist_vs_referent": derr,
+    }
+    log(f"serve(a): {ing['inserted']} inserts with the WAL on at "
+        f"{summary['inserts_per_s_wal_on']:.0f}/s; checkpoint {t_ckpt:.3f} s; "
+        f"WAL {wal_bytes} B, checkpoint {ckpt_bytes} B; recovery {t_recover:.3f} s "
+        f"(checkpoint loads {rs['checkpoint_loads']}, WAL records replayed "
+        f"{rs['wal_replayed']}); live gids equal, {len(queries)} answers bitwise "
+        f"equal to the pre-close ones, ids == brute referent")
+    log("serve(a): summary " + json.dumps(summary))
+    return rec, after, summary
+
+
+def run_serve(rec, queries, r, direct):
+    """(b) `SearchFrontend` over the recovered index: warm-up, then
+    SERVE_CLIENTS threads each submitting SERVE_PER_CLIENT of the queries
+    synchronously (as `benchmarks/serve_bench.py` does). Every reply must
+    equal the index's direct answer bitwise, and every dispatch must lie
+    in the pow2 class set. Launch counts are set to 0 after the warm-up
+    and read after stop(): live traffic only, one dispatcher thread."""
+    import threading
+
+    from repro_torch import obs
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import topk_l2 as tk
+    from repro_torch.serve.frontend import FrontendConfig, SearchFrontend
+
+    k = 10
+    cfg = FrontendConfig(k=k, radius=r, max_batch=64)
+    fe = SearchFrontend(rec, cfg)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    fe.start()
+    warmup_s = time.perf_counter() - t0
+    warm_launches = ops.launch_counts()
+    base = {b: fe._c_dispatch[b].value for b in cfg.batch_classes}
+    spans = ("search.phase1", "engine.plan", "engine.stack", "engine.dispatch",
+             "engine.delta", "engine.merge")
+
+    def span_sums():
+        return {name: obs.REGISTRY.histogram(f"span.{name}", unit="s").sum
+                for name in spans}
+
+    span0 = span_sums()
+    ops.reset_launch_counts()
+    n_req = SERVE_CLIENTS * SERVE_PER_CLIENT
+    replies = [None] * n_req
+    lat_ms = [None] * n_req
+
+    def client(c):
+        for i in range(c * SERVE_PER_CLIENT, (c + 1) * SERVE_PER_CLIENT):
+            t = time.perf_counter()
+            replies[i] = fe.submit(queries[i]).result(600)
+            lat_ms[i] = (time.perf_counter() - t) * 1e3
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(SERVE_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    wall = time.perf_counter() - t0
+    fe.stop()
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a serving client never finished")
+    launches = ops.launch_counts()
+    by_q = tk.launches_by_q()
+    shapes = dict(tk.LAUNCH_SHAPES)
+    span1 = span_sums()
+    per_class = {b: fe._c_dispatch[b].value - base[b] for b in cfg.batch_classes}
+    n_dispatch = sum(per_class.values())
+    for i, reply in enumerate(replies):
+        if not (np.array_equal(reply.gids, direct.gids[i])
+                and np.array_equal(reply.distances, direct.distances[i])):
+            raise AssertionError(f"frontend reply {i} differs from the direct answer: "
+                                 f"{reply.gids} vs {direct.gids[i]}")
+    if n_dispatch <= 0 or not set(by_q) <= set(cfg.batch_classes):
+        raise AssertionError(f"dispatches outside the pow2 classes: {per_class}, "
+                             f"topk_l2 launches by Q {by_q}")
+    if launches["leaf_topk"] <= 0 or launches["topk_l2"] <= 0:
+        raise AssertionError(f"a kernel of the serving path never launched: {launches}")
+    lat = np.asarray(lat_ms)
+    engine_s = sum(span1[n] - span0[n] for n in spans if n != "search.phase1")
+    phase1_s = span1["search.phase1"] - span0["search.phase1"]
+    summary = {
+        "clients": SERVE_CLIENTS, "requests_per_client": SERVE_PER_CLIENT,
+        "requests": n_req, "wall_s": wall, "qps": n_req / wall,
+        "latency_p50_ms": float(np.percentile(lat, 50)),
+        "latency_p99_ms": float(np.percentile(lat, 99)),
+        "dispatches": n_dispatch, "dispatches_per_class": per_class,
+        "mean_batch_occupancy": n_req / n_dispatch,
+        "warmup_s": warmup_s, "warmup_launches": warm_launches,
+        "launches": launches, "topk_l2_launches_by_q": by_q,
+        "engine_host_s": engine_s, "phase1_host_s": phase1_s,
+        "phase1_share_of_engine": phase1_s / engine_s if engine_s else None,
+    }
+    log(f"serve(b): {n_req} requests from {SERVE_CLIENTS} clients in {wall:.3f} s "
+        f"({summary['qps']:.1f} qps), submit->resolve p50 "
+        f"{summary['latency_p50_ms']:.3f} ms p99 {summary['latency_p99_ms']:.3f} ms; "
+        f"{n_dispatch} dispatches {per_class}, mean occupancy "
+        f"{summary['mean_batch_occupancy']:.3f}; warm-up {warmup_s:.3f} s; "
+        f"launches {launches}, topk_l2 by Q {by_q}; every reply == the direct answer")
+    log("serve(b): summary " + json.dumps(summary))
+    return launches, summary, shapes
+
+
+def check_serve_shapes(dev, pts, queries, r, shapes, launches):
+    """(b), then: both read-path kernels at every call shape the serving
+    run gave them (`topk_l2.LAUNCH_SHAPES`, read after stop()) against
+    their plain versions on the same inputs, bitwise — leaf_topk on
+    random candidates at a dispatch's (R, C, D, k', storage), topk_l2 on
+    the main path's points and queries at its (Q, N) — with kernel,
+    plain and library times and the bound. These launches come after
+    the serving run's counts were read. Returns the per-shape readings
+    of each kernel."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    out = {"leaf_topk": [], "topk_l2": []}
+    for key, n_launch in sorted(shapes.items()):
+        if key[0] == "leaf_topk":
+            _, rows, c, d, kp, dtype = key
+            v = _leaf_case(dev, gen, rows, c, d, kp, dtype, reps=10)
+            log(f"serve kernel leaf_topk[{dtype}] R={rows} C={c} D={d} "
+                f"k'={kp} ({n_launch} launches): kernel_ms={v['ms']:.5f} "
+                f"plain_ms={v['plain_ms']:.4f} bound_ms={v['bound_ms']:.6f}; "
+                f"outputs bitwise equal to the plain version")
+            out["leaf_topk"].append({"r": rows, "c": c, "d": d, "k": kp,
+                                     "dtype": dtype, "launches": n_launch, **v})
+        else:
+            _, m, n, d, k = key
+            if d != pts.shape[1]:
+                raise AssertionError(f"topk_l2 served at D={d}, data has "
+                                     f"D={pts.shape[1]}")
+            # the queries with the most in-radius points of the arena
+            # first, so that even Q = 1 fills its k-list across splits
+            qa = torch.from_numpy(queries.astype(np.float32)).to(dev)
+            pa = torch.from_numpy(pts[:n].astype(np.float32)).to(dev)
+            hits = (torch.cdist(qa, pa) <= r).sum(1)
+            order = torch.argsort(hits, descending=True, stable=True).cpu().numpy()
+            (v,) = check_scan(dev, pts, queries[order], r, shapes=((m, n),), k=k,
+                              label=f"serve kernel ({n_launch} launches)").values()
+            out["topk_l2"].append({"k": k, "launches": n_launch, **v})
+    for name, rows in out.items():
+        checked = sum(row["launches"] for row in rows)
+        if checked != launches[name] or not rows:
+            raise AssertionError(f"{name}: {launches[name]} serving launches, "
+                                 f"{checked} of them at checked shapes")
+    return out
 
 
 def main_data():
@@ -840,6 +1162,11 @@ def main() -> int:
 
     launches = run_main(dev, pts, queries, r)
     prim_launches, pair, cov = run_primitives(dev, pts, queries)
+    with tempfile.TemporaryDirectory() as tmp:
+        rec, direct, _ = run_durable(dev, pts, queries, r, tmp)
+        serve_launches, serve, serve_shapes = run_serve(rec, queries, r, direct)
+        rec.close()
+    served = check_serve_shapes(dev, pts, queries, r, serve_shapes, serve_launches)
 
     bf = leaf_variants["bfloat16"]
     kernels = [
@@ -848,7 +1175,10 @@ def main() -> int:
             "replaces": LEAF_REPLACES, "launches": launches["leaf_topk"],
             "max_abs_err": leaf_err, "ms": bf["ms"], "plain_ms": bf["plain_ms"],
             "bound_ms": bf["bound_ms"], "bound_by": bf["bound_by"],
-            "library_ms": None, "variants": leaf_variants,
+            "library_ms": None,
+            "variants": {**leaf_variants,
+                         "serve": {"launches": serve_launches["leaf_topk"],
+                                   "shapes": served["leaf_topk"]}},
         },
         {
             # the final pass's shape, Q = 5,300, as in earlier runs; the
@@ -860,7 +1190,11 @@ def main() -> int:
             "plain_ms": scan["q5300"]["plain_ms"],
             "bound_ms": scan["q5300"]["bound_ms"],
             "bound_by": scan["q5300"]["bound_by"],
-            "library_ms": scan["q5300"]["library_ms"], "variants": scan,
+            "library_ms": scan["q5300"]["library_ms"],
+            "variants": {**scan, "serve": {
+                "launches": serve_launches["topk_l2"],
+                "launches_by_q": serve["topk_l2_launches_by_q"],
+                "shapes": served["topk_l2"]}},
         },
     ]
     for name, src, replaces, res, main_key in (

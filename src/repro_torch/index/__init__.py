@@ -14,11 +14,17 @@ with a device-resident delta buffer (port of the reference's `index`).
 Each live point lives in exactly one part, each part's constrained-KNN
 is exact over its own live points, and the merge of per-part k-bests is
 exact — so search equals a fresh static build over the live set.
-WAL, checkpoints, fault injection and sharding wait for later slices.
+
+Durability: a write-ahead log (`wal`) and atomic checkpoints
+(`checkpoint`) in the reference's file formats, and the deterministic
+fault injection (`faults`) that drives their crash tests. Sharding waits
+for a later slice.
 """
+from . import checkpoint, faults, wal  # noqa: F401
 from .delta import DeltaBuffer  # noqa: F401
-from .search import StreamResult, constrained_knn  # noqa: F401
+from .search import StreamResult, constrained_knn, knn  # noqa: F401
 from .segment import Segment, merge_segments, plan_merges, tier_of  # noqa: F401
 from .snapshot import SegmentView, Snapshot  # noqa: F401
 from .streaming import StreamingConfig, StreamingIndex  # noqa: F401
 from .tombstones import TombstoneLog  # noqa: F401
+from .wal import WriteAheadLog  # noqa: F401

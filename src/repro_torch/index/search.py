@@ -36,3 +36,7 @@ def constrained_knn(
         distances=np.asarray(res.distances, np.float32),
     )
 
+
+def knn(snap: Snapshot, queries: np.ndarray, k: int) -> StreamResult:
+    """Unconstrained KNN = constrained with r = inf (gates become no-ops)."""
+    return constrained_knn(snap, queries, k, np.inf)

@@ -1,8 +1,8 @@
 """Immutable ball*-tree segments and the size-tiered merge policy.
 
 A segment is one sealed delta (or the product of a merge): a ball*-tree
-built once with the level-synchronous builder (`core/build.py`) and
-never restructured. Mutability is layered on top:
+built once — by the level-synchronous device builder (`core/build.py`,
+backend "torch") or the host builder ("host") — and never restructured. Mutability is layered on top:
 
   * delete — a tombstone sets the point's slot in the device
     ``leaf_index`` to -1 (in a CLONE: snapshots and stacked engine
@@ -26,7 +26,7 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
-from ..core.build import build as build_tree
+from ..core import build as build_tree
 from ..core import search as sj
 from ..core.types import Tree, TreeSpec
 from ..kernels import quantize
@@ -62,12 +62,15 @@ class Segment:
         points: np.ndarray,
         gids: np.ndarray,
         spec: TreeSpec,
+        backend: str = "torch",
         storage_dtype: str = "float32",
         device="cuda",
     ) -> "Segment":
+        """Build a segment over `points` with the `backend` tree builder
+        ("torch": on `device`; "host": numpy), its tensors on `device`."""
         points = np.asarray(points, np.float32)
         n = points.shape[0]
-        tree = build_tree(points, spec, device=device)
+        tree = build_tree(points, spec, backend=backend, device=device)
         li = np.asarray(tree.leaf_index)
         slot_of_local = np.full((n, 2), -1, np.int32)
         ranks, slots = np.nonzero(li >= 0)
@@ -156,6 +159,7 @@ def plan_merges(
 def merge_segments(
     segments: Sequence[Segment],
     spec: TreeSpec,
+    backend: str = "torch",
     storage_dtype: str = "float32",
     device="cuda",
 ) -> Segment | None:
@@ -169,5 +173,6 @@ def merge_segments(
     if len(pts) == 0:
         return None
     return Segment.from_points(
-        pts, gids, spec, storage_dtype=storage_dtype, device=device
+        pts, gids, spec, backend=backend, storage_dtype=storage_dtype,
+        device=device,
     )

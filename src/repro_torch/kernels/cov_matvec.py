@@ -14,9 +14,13 @@ The function exists twice here:
     stream (`cuda_lib.ticket_counters`), zeroed when it is made and reset
     to 0 by the last block, so eager calls on two streams never share one
     and calls on one stream run in order (a CUDA graph that holds a call
-    is replayed on its capture stream; see `ticket_counters`). D is at
-    most 2,048 (`_MAX_D`): a thread keeps the column sums of up to eight
-    columns in registers, and the 16 KB tile holds whole rows;
+    is replayed on its capture stream; see `ticket_counters`). Two routes,
+    chosen by D alone: up to 2,048 columns a thread keeps the column sums
+    of up to eight columns in registers and 16 KB tiles hold whole rows;
+    wider rows (`WIDE_MIN_D` and up) take the wide route, one row a warp
+    for the dot and the D column sums in shared memory (or, past 57,344
+    columns, in the block's partial row), in the same order of sums, so
+    any D runs;
   * a plain PyTorch version (`cov_matvec_plain`) that repeats the
     kernel's order of sums with whole-tensor operations — each row's dot
     by `row_lanes(D)` lanes (strided columns, a rotated start for rows
@@ -45,8 +49,14 @@ _THREADS = 256          # threads per block (csrc/cov_matvec.cu)
 _WARP = 32
 _TILE_VALUES = 4096     # values per tile, at most (csrc/cov_matvec.cu)
 _TARGET_BLOCKS = 264    # the grid aims at this many blocks (two per H100 SM)
-_MAX_D = 2048           # eight columns a thread (csrc/cov_matvec.cu)
+WIDE_MIN_D = 2049       # wider rows take the wide route (csrc/cov_matvec.cu)
 _ROW_DOT_MAX_D = 4      # wider rows start their dot rotated by the row
+
+
+def route(d: int) -> str:
+    """The kernel's route for rows of D values: "tile" up to 2,048, then
+    "wide"."""
+    return "wide" if d >= WIDE_MIN_D else "tile"
 
 
 def _layout(d: int):
@@ -180,8 +190,8 @@ def cov_matvec_cuda(x: torch.Tensor, mean: torch.Tensor, w: torch.Tensor):
     if code is None or x.dim() != 2:
         raise ValueError(f"cov_matvec: x must be (N, D) f32 or bf16, got {x.dtype}")
     n, d = x.shape
-    if not 1 <= d <= _MAX_D:
-        raise ValueError(f"cov_matvec: D={d} outside [1, {_MAX_D}]")
+    if d < 1:
+        raise ValueError(f"cov_matvec: D={d}, need at least one column")
     device = x.device
     for name, t in (("x", x), ("mean", mean), ("w", w)):
         if t.device != device or not t.is_contiguous():

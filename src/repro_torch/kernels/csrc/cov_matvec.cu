@@ -44,6 +44,21 @@
 //   Last block: thread (f, c) sums partial[b, c] for b = f, f + G, ... in
 //   order (32 loads in flight), then the same group fold gives y.
 //
+// Rows wider than 2,048 (kMaxColsPerThread * 256) take the wide route,
+// cov_matvec_wide_kernel, chosen by D alone. The geometry above then has
+// one row a tile (T = 1), CW = 256, G = 1 and P = 32 lanes a row, and the
+// same order of sums holds: block b owns rows [b*R, min(N, (b+1)*R)) and
+// walks them eight at a time, one warp a row. Warp v computes t_i of row
+// i = base + v by the 32-lane rotated walk above, straight from device
+// memory (mu and w through the read-only cache), and an xor tree; then
+// thread c adds t_i * (x_ic - mu_c) for the eight rows in order to its
+// running sums of columns c, c + 256, ... . Those D sums live in shared
+// memory (4 * D bytes: 48 KB at D = 12,032) up to kWideSmemMaxD columns
+// and in the block's own partial row in device memory above that, so any
+// D runs. The last block sums partial[b, c] over b in order (G = 1: the
+// group fold is the identity). Each row is read twice — the dot, then the
+// column sums — the second time from L2 (eight rows of 48 KB at 12,032).
+//
 // Arithmetic: explicitly rounded intrinsics (__fsub_rn / __fmul_rn /
 // __fadd_rn, never contracted to FMAs), in exactly the order above. The
 // plain version in ../cov_matvec.py repeats that order with whole-tensor
@@ -57,6 +72,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int kThreads = 256;     // threads per block
@@ -66,8 +83,10 @@ constexpr int kStages = 3;        // tiles in the cp.async ring
 constexpr int kStageBytes = kTileValues * 4;  // one tile, raw
 constexpr int kRowDotMaxD = 4;    // wider rows start their dot rotated
 constexpr int kFoldLoads = 32;    // partials a thread loads at once
-constexpr int kMaxColsPerThread = 8;  // D <= 8 * 256 = 2048
+constexpr int kMaxColsPerThread = 8;  // D <= 8 * 256 = 2048, else wide
 constexpr int kDefaultSmem = 48 * 1024;
+constexpr int kWideRows = kThreads / kWarp;  // rows a pass, one a warp
+constexpr int kWideSmemMaxD = 56 * 1024;     // column sums in shared memory
 
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) {
@@ -293,6 +312,131 @@ __global__ void __launch_bounds__(kThreads)
   fold_groups(L, acc, ws, y);
 }
 
+// The wide route (D > kMaxColsPerThread * kThreads): see the header. acc
+// is shared memory (smem_acc) or this block's partial row itself; either
+// way each thread reads and writes only its own columns c, c + 256, ... .
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    cov_matvec_wide_kernel(const T* __restrict__ x,
+                           const float* __restrict__ mean,
+                           const float* __restrict__ w, long long n, int d,
+                           long long rows_per_block, int smem_acc,
+                           float* __restrict__ partial,
+                           unsigned* __restrict__ ticket,
+                           float* __restrict__ y) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ float ts[kWideRows];
+  __shared__ int s_last;
+  float* part = partial + static_cast<long long>(blockIdx.x) * d;
+  float* acc = smem_acc ? reinterpret_cast<float*>(smem_raw) : part;
+  for (int c = threadIdx.x; c < d; c += kThreads) acc[c] = 0.f;
+  const int lane = threadIdx.x % kWarp;
+  const int warp = threadIdx.x / kWarp;
+  const int steps = (d + kWarp - 1) / kWarp;
+  const long long lo = static_cast<long long>(blockIdx.x) * rows_per_block;
+  const long long hi = min(n, lo + rows_per_block);
+  for (long long base = lo; base < hi; base += kWideRows) {
+    const int rows = static_cast<int>(min(static_cast<long long>(kWideRows), hi - base));
+    if (warp < rows) {
+      // t of row base + warp: lane q sums columns q + 32*s, s from
+      // (row mod 32) mod S around to it, then the xor tree
+      const long long row = base + warp;
+      const T* xr = x + row * d;
+      int st = static_cast<int>(row % kWarp) % steps;
+      float tv = 0.f;
+#pragma unroll 4
+      for (int s0 = 0; s0 < steps; ++s0) {
+        const int k = lane + kWarp * st;
+        if (k < d)
+          tv = __fadd_rn(tv, __fmul_rn(__fsub_rn(widen(xr[k]), __ldg(mean + k)),
+                                       __ldg(w + k)));
+        st = st + 1 == steps ? 0 : st + 1;
+      }
+      for (int off = kWarp / 2; off >= 1; off >>= 1)
+        tv = __fadd_rn(tv, __shfl_xor_sync(0xffffffffu, tv, off));
+      if (lane == 0) ts[warp] = tv;
+    }
+    __syncthreads();  // the pass's t values are in ts
+    const T* xb = x + base * d;
+    for (int c = threadIdx.x; c < d; c += kThreads) {
+      const float mu = __ldg(mean + c);
+      float a = acc[c];
+      for (int i = 0; i < rows; ++i)
+        a = __fadd_rn(a, __fmul_rn(ts[i], __fsub_rn(widen(xb[static_cast<long long>(i) * d + c]), mu)));
+      acc[c] = a;
+    }
+    __syncthreads();  // ts is rewritten by the next pass
+  }
+  if (smem_acc)
+    for (int c = threadIdx.x; c < d; c += kThreads) part[c] = acc[c];
+
+  // the last block to finish sums the partials, blocks in order
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned tk = atomicAdd(ticket, 1u);
+    s_last = tk == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  if (threadIdx.x == 0) *ticket = 0u;  // zero again for the next launch
+  const int nb = static_cast<int>(gridDim.x);
+  for (int c = threadIdx.x; c < d; c += kThreads) {
+    const float* src = partial + c;
+    float a = 0.f;
+    int b = 0;
+    for (; b + kFoldLoads <= nb; b += kFoldLoads) {
+      float v[kFoldLoads];
+#pragma unroll
+      for (int u = 0; u < kFoldLoads; ++u)
+        v[u] = __ldcg(src + static_cast<long long>(b + u) * d);
+#pragma unroll
+      for (int u = 0; u < kFoldLoads; ++u) a = __fadd_rn(a, v[u]);
+    }
+    for (; b < nb; ++b) a = __fadd_rn(a, __ldcg(src + static_cast<long long>(b) * d));
+    y[c] = a;
+  }
+}
+
+// Raises the wide kernel's dynamic shared-memory ceiling to its largest
+// request (kWideSmemMaxD columns) once per device, not on every launch: a
+// launch asks for 4 * D bytes and runs with that much whatever the ceiling.
+template <typename T>
+int allow_wide_smem() {
+  static std::atomic<unsigned long long> done{0};  // one bit a device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (done.load(std::memory_order_acquire) & bit) return 0;
+  err = cudaFuncSetAttribute(
+      cov_matvec_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(sizeof(float) * kWideSmemMaxD));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  done.fetch_or(bit, std::memory_order_release);
+  return 0;
+}
+
+template <typename T>
+int launch_wide(const void* x, const void* mean, const void* w, long long n,
+                int d, long long rows_per_block, void* partial, void* ticket,
+                void* y, cudaStream_t stream) {
+  const long long blocks = (n + rows_per_block - 1) / rows_per_block;
+  const int smem_acc = d <= kWideSmemMaxD;
+  const size_t smem = smem_acc ? sizeof(float) * static_cast<size_t>(d) : 0;
+  if (smem > kDefaultSmem) {
+    const int err = allow_wide_smem<T>();
+    if (err != 0) return err;
+  }
+  cov_matvec_wide_kernel<T><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(mean),
+      static_cast<const float*>(w), n, d, rows_per_block, smem_acc,
+      static_cast<float*>(partial), static_cast<unsigned*>(ticket),
+      static_cast<float*>(y));
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch(const void* x, const void* mean, const void* w, long long n, int d,
            int tile_rows, long long rows_per_block, int row_lanes,
@@ -329,19 +473,31 @@ extern "C" {
 // dtype: 0 = f32, 1 = bf16 (x only; mean and w are f32). tile_rows and
 // rows_per_block from ../cov_matvec.py `geometry` (rows_per_block a
 // multiple of tile_rows, tile_rows a multiple of the row groups, at most
-// kTileValues values a tile); partial: (blocks, d) f32 scratch with blocks =
+// kTileValues values a tile; for D > 2,048 the wide route, tile_rows 1 and
+// row_lanes 32); partial: (blocks, d) f32 scratch with blocks =
 // ceil(n / rows_per_block); ticket: one uint32, 0 at launch and 0 again
 // after it; y: (d,) f32.
 int cov_matvec_launch(int dtype, const void* x, const void* mean,
                       const void* w, long long n, int d, int tile_rows,
                       long long rows_per_block, int row_lanes, void* partial,
                       void* ticket, void* y, void* stream) {
-  if (n <= 0 || d <= 0 || d > kMaxColsPerThread * kThreads ||
-      tile_rows <= 0 || rows_per_block % tile_rows != 0 ||
-      static_cast<long long>(tile_rows) * d > kTileValues || row_lanes < 1 ||
-      row_lanes > kWarp || (row_lanes & (row_lanes - 1)) != 0)
+  if (n <= 0 || d <= 0 || tile_rows <= 0 || rows_per_block % tile_rows != 0 ||
+      row_lanes < 1 || row_lanes > kWarp || (row_lanes & (row_lanes - 1)) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d > kMaxColsPerThread * kThreads) {  // the wide route: T = 1, P = 32
+    if (tile_rows != 1 || row_lanes != kWarp)
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (dtype == 1)
+      return launch_wide<__nv_bfloat16>(x, mean, w, n, d, rows_per_block,
+                                        partial, ticket, y, s);
+    if (dtype == 0)
+      return launch_wide<float>(x, mean, w, n, d, rows_per_block, partial,
+                                ticket, y, s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (static_cast<long long>(tile_rows) * d > kTileValues)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 1)
     return launch<__nv_bfloat16>(x, mean, w, n, d, tile_rows, rows_per_block,
                                  row_lanes, partial, ticket, y, s);

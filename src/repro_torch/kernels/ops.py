@@ -21,8 +21,9 @@ Two families, as in the reference's `kernels/ops.py`:
 `launch_counts()` reports how often each CUDA kernel was launched on the
 device (`topk_l2` and the pairwise kernel's wide route launch two per
 call, the others one; the plain versions never count): the evidence that a run went through the kernels.
-`topk_l2.LAUNCHES_BY_Q` splits topk_l2's launches by the call's query
-count, and `reset_launch_counts()` clears it too.
+`topk_l2.LAUNCH_SHAPES` splits both top-k kernels' launches by the
+call's shape (`topk_l2.launches_by_q()` topk_l2's by its query count);
+`reset_launch_counts()` clears it too.
 """
 from __future__ import annotations
 
@@ -49,7 +50,7 @@ def reset_launch_counts() -> None:
     for counts in _COUNTERS:
         for name in counts:
             counts[name] = 0
-    _tk.LAUNCHES_BY_Q.clear()
+    _tk.LAUNCH_SHAPES.clear()
 
 
 def _on_cuda(t: torch.Tensor, name: str) -> bool:

@@ -51,8 +51,20 @@ _R2_SLACK = 1.0 + 2.0**-20
 # device launches since the last reset, per kernel: incremented only
 # where a kernel is launched (never by the plain versions)
 LAUNCHES = {"leaf_topk": 0, "topk_l2": 0}
-# topk_l2's device launches since the last reset, by the call's query count
-LAUNCHES_BY_Q: dict = {}
+# device launches since the last reset, by kernel and call shape:
+# ("leaf_topk", R, C, D, k, storage dtype) and ("topk_l2", Q, N, D, k)
+LAUNCH_SHAPES: dict = {}
+
+
+def launches_by_q() -> dict:
+    """topk_l2's device launches since the last reset, by the call's
+    query count (from `LAUNCH_SHAPES`)."""
+    out: dict = {}
+    for key, n in LAUNCH_SHAPES.items():
+        if key[0] == "topk_l2":
+            out[key[1]] = out.get(key[1], 0) + n
+    return dict(sorted(out.items()))
+
 
 _LEAF_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _MAX_K = 1024  # k > 32: the selection list lives in shared memory, 12 B an entry
@@ -288,6 +300,8 @@ def leaf_topk_cuda(q, cands, cgids, r_sq, k: int, cscale=None):
         )
     cuda_lib.raise_on(err, "leaf_topk")
     LAUNCHES["leaf_topk"] += 1
+    key = ("leaf_topk", rows, c, d, k, str(cands.dtype).removeprefix("torch."))
+    LAUNCH_SHAPES[key] = LAUNCH_SHAPES.get(key, 0) + 1
     return out
 
 
@@ -348,5 +362,6 @@ def topk_cuda(q, p, gids, r_sq, k: int):
         )
     cuda_lib.raise_on(err, "topk_l2")
     LAUNCHES["topk_l2"] += 2  # topk_pnorm_kernel, then topk_scan_kernel
-    LAUNCHES_BY_Q[m] = LAUNCHES_BY_Q.get(m, 0) + 2
+    key = ("topk_l2", m, n, d, k)
+    LAUNCH_SHAPES[key] = LAUNCH_SHAPES.get(key, 0) + 2
     return out

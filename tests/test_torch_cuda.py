@@ -232,7 +232,7 @@ def test_launches_are_counted(dev):
     tk.topk_cuda(q.to(dev), p.to(dev), g.to(dev), r_sq.to(dev), 5)
     # the |p|² pre-pass and the split scan
     assert tk.LAUNCHES["topk_l2"] == before["topk_l2"] + 2
-    assert tk.LAUNCHES_BY_Q[64] >= 2
+    assert tk.launches_by_q()[64] >= 2
 
 
 def _expansion_tol(q, p) -> float:
@@ -309,14 +309,26 @@ def test_cov_matvec_kernel_equals_plain(dev, dtype, n, d):
     assert torch.equal(cm.cov_matvec_cuda(xd, md, wd), got)  # no atomics
 
 
-def test_cov_matvec_rows_wider_than_2048_raise(dev):
-    """The kernel keeps at most eight columns a thread (D <= 2,048,
-    `cov_matvec._MAX_D`); wider rows raise instead of launching."""
-    x = torch.zeros((4, 2049), device=dev)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d", [(33, 2049), (4096, 2049), (300, 12032),
+                                 (4096, 12032), (3, 60_000)])
+def test_cov_matvec_wide_rows_equal_plain(dev, dtype, n, d):
+    """Rows wider than 2,048 take the wide route (one row a warp, the
+    column sums in shared memory, or past 57,344 columns in the block's
+    partial row): one launch, bitwise equal to the plain version and
+    across two runs, and power_iteration runs on them."""
+    assert cm.route(d) == "wide" and cm.route(2048) == "tile"
+    x, mean, w = _cov_case(n, d, dtype, seed=n + d)
+    want = cm.cov_matvec_plain(x, mean, w)
+    xd, md, wd = x.to(dev), mean.to(dev), w.to(dev)
     before = cm.LAUNCHES["cov_matvec"]
-    with pytest.raises(ValueError, match="D=2049"):
-        cm.cov_matvec_cuda(x, x[0].clone(), x[0].clone())
-    assert cm.LAUNCHES["cov_matvec"] == before
+    got = cm.cov_matvec_cuda(xd, md, wd)
+    assert cm.LAUNCHES["cov_matvec"] == before + 1
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(cm.cov_matvec_cuda(xd, md, wd), got)  # no atomics
+    v = ops.power_iteration(xd, iters=2,
+                            generator=torch.Generator(device=dev).manual_seed(0))
+    assert v.shape == (d,) and bool(torch.isfinite(v).all())
 
 
 def test_primitive_launches_are_counted(dev):
@@ -328,3 +340,69 @@ def test_primitive_launches_are_counted(dev):
     counts = ops.launch_counts()
     # one device launch per cov_matvec call (the last block folds)
     assert counts["pairwise_sq_l2"] == 1 and counts["cov_matvec"] == 5
+
+
+def _card_index(dev, tmp_path=None, seed=3):
+    """A small streaming index on the card: 600 sealed points in 8-D plus
+    50 in the delta arena, a tenth of them deleted (WAL in `tmp_path`)."""
+    from repro_torch.index import StreamingConfig, StreamingIndex
+
+    rng = np.random.default_rng(seed)
+    wal = None if tmp_path is None else str(tmp_path / "card.wal")
+    idx = StreamingIndex(StreamingConfig(dim=8, delta_capacity=128,
+                                         device=str(dev), wal_path=wal))
+    g = idx.add(rng.normal(size=(600, 8)).astype(np.float32))
+    idx.flush()
+    idx.add(rng.normal(size=(50, 8)).astype(np.float32))
+    idx.delete(g[::10])
+    return idx, rng.normal(size=(64, 8)).astype(np.float32)
+
+
+def test_wal_recovery_on_the_card_is_bitwise(dev, tmp_path):
+    """Checkpoint + WAL tail on the card: the recovered index (segments
+    rebuilt by the device builder) answers bitwise as before the close."""
+    idx, q = _card_index(dev, tmp_path)
+    assert idx.checkpoint()
+    idx.add(np.random.default_rng(4).normal(size=(30, 8)).astype(np.float32))
+    want = idx.constrained_knn(q, 5, 2.5)
+    idx.close()
+    from repro_torch.index import StreamingIndex
+
+    rec = StreamingIndex(idx.config)
+    got = rec.constrained_knn(q, 5, 2.5)
+    np.testing.assert_array_equal(got.gids, want.gids)
+    np.testing.assert_array_equal(got.distances, want.distances)
+    np.testing.assert_array_equal(rec.live_gids(), idx.live_gids())
+    rec.close()
+
+
+def test_frontend_over_card_index_matches_direct(dev):
+    """4 clients x 16 synchronous requests through the frontend: every
+    reply equals the direct search bitwise, and the dispatches went
+    through both read-path kernels."""
+    import threading
+
+    from repro_torch.serve.frontend import FrontendConfig, SearchFrontend
+
+    idx, q = _card_index(dev)
+    fe = SearchFrontend(idx, FrontendConfig(k=5, radius=2.5, max_batch=16))
+    replies = [None] * len(q)
+    with fe:
+        ops.reset_launch_counts()
+
+        def client(c):
+            for i in range(c * 16, (c + 1) * 16):
+                replies[i] = fe.search(q[i], timeout=120)
+
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        assert not any(t.is_alive() for t in threads)
+    counts = ops.launch_counts()
+    assert counts["leaf_topk"] > 0 and counts["topk_l2"] > 0
+    direct = idx.constrained_knn(q, 5, 2.5)
+    for i, reply in enumerate(replies):
+        np.testing.assert_array_equal(reply.gids, direct.gids[i])
+        np.testing.assert_array_equal(reply.distances, direct.distances[i])

@@ -27,6 +27,7 @@ import jax.numpy as jnp
 
 from repro.core.pca import first_component_exact as j_exact
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 from repro_torch.core import first_component_exact
 from repro_torch.kernels import cov_matvec as cm
 from repro_torch.kernels import ops
@@ -121,6 +122,54 @@ def test_cov_matvec_plain_sum_order(n, d):
     chain = rows // groups + groups.bit_length() + blocks + 8 + d
     scale = np.abs(xc).T @ (np.abs(xc) @ np.abs(w))
     assert (np.abs(got - want) <= 2 * chain * 2.0**-24 * scale + 1e-30).all()
+
+
+def _wide_case(dtype, n=33, d=2049, seed=11):
+    """33 rows of 2,049 values (the kernel's wide route on the card), one
+    dominant direction; x rounded to `dtype` once."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, d)) + 1.5
+    x[:, 0] *= 6.0
+    x[:, 1] *= 3.0
+    jx, tx = _both(x, dtype)
+    mean = tx.float().mean(0)
+    return jx, tx, mean
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cov_matvec_wide_rows_match_reference(dtype):
+    """D = 2,049: the plain version against the reference's
+    `kernels/ref.py cov_matvec` (XLA's f32 products). Tolerance: each of
+    the two computes two f32 dot products with chains of at most N + D
+    additions, so each lies within (N + D)·2⁻²⁴·s of the exact value,
+    s = |Xc|ᵀ(|Xc||w|); they are held to twice that."""
+    jx, x, mean = _wide_case(dtype)
+    n, d = x.shape
+    w = torch.from_numpy(np.random.default_rng(12).standard_normal(d).astype(np.float32))
+    got = ops.cov_matvec(x, mean, w).numpy()
+    want = np.asarray(jref.cov_matvec(jx, jnp.asarray(mean.numpy()), jnp.asarray(w.numpy())))
+    xc = np.abs(x.float().numpy().astype(np.float64) - mean.numpy())
+    scale = xc.T @ (xc @ np.abs(w.numpy()))
+    assert got.shape == (d,) and got.dtype == np.float32
+    assert (np.abs(got - want) <= 2 * (n + d) * 2.0**-24 * scale).all()
+
+
+def test_power_iteration_wide_rows_match_reference_steps():
+    """D = 2,049: `ops.power_iteration` against the same 16 steps taken
+    with the reference's `ref.cov_matvec` from the same start vector (the
+    step's f32 reordering, ≤ 1e-4 per entry of the unit vector), and
+    |cos| > 0.999 against the exact eigenvector."""
+    jx, x, mean = _wide_case("float32")
+    d = x.shape[1]
+    w = ops.power_iteration(x, iters=16, generator=torch.Generator().manual_seed(4))
+    v = torch.randn(d, generator=torch.Generator().manual_seed(4)).numpy()
+    v = v / np.linalg.norm(v)
+    jmean = jnp.asarray(mean.numpy())
+    for _ in range(16):
+        y = np.asarray(jref.cov_matvec(jx, jmean, jnp.asarray(v)))
+        v = y / np.linalg.norm(y)
+    assert np.abs(w.numpy() - v).max() <= 1e-4
+    assert abs(float(np.dot(w.numpy(), first_component_exact(x.numpy())))) > 0.999
 
 
 def test_power_iteration_matches_eigh_and_reference():
