@@ -79,6 +79,32 @@ Phases, in order; any failure raises and the script exits non-zero:
                    their splits and last-block merge, the leaf scans of
                    1- and 8-query dispatches) against its plain version,
                    bitwise, with its times and bound.
+  6. distributed — the distributed index on the main path's data, four
+               shards on the card, launch counts set to 0 before (a) and
+               read after (c); phase 3's index, flushed and answered
+               first, outside the count, is the single-device referent:
+               (a) `build_sharded` over the 500,000 points and
+                   `constrained_knn` of the 5,300 queries (the four trees
+                   in one stacked walk), ids == a brute referent;
+                   `brute_constrained_knn` over 499,998 points (topk_l2
+                   at Q = 5,300, N = 125,000 a shard), ids == a brute
+                   referent; build, query and brute seconds;
+               (b) `ShardedStreamingIndex(n_shards=4)` with four WALs:
+                   phase 3's ingest without queries (one checkpoint
+                   midway), 16 timed batches of 64 queries, the 5,300
+                   queries (ids == a brute referent over its live set,
+                   and a pass's host time split by span, `shard.fold`
+                   among them), then flushed: answers bitwise equal to the
+                   flushed single-device index; inserts/s, p50 / p99,
+                   pass seconds, stack-cache builds over the batches;
+               (c) shard 1 down (`shard.search` armed): a flagged partial
+                   answer without its gids, the full answer's other ids
+                   in order, one failover counted; close, reopen from the
+                   WALs: live gids equal, answers bitwise equal to the
+                   pre-close ones; recovery seconds;
+               (d) both read-path kernels at every call shape (a)–(c)
+                   launched them against their plain versions, bitwise,
+                   with times and bounds (as phase 5 (b)).
 
 Kernel times ("ms") are CUDA-event means over back-to-back eager calls
 through the wrapper, what the port pays. For the two launch-bound
@@ -293,8 +319,9 @@ def check_scan(dev, pts, queries, r, shapes=((64, 4096), (5300, 4096)), k=10,
     """topk_l2 at the main path's shapes — Q = 64 (the 64-query batches
     against the whole 4,096-slot arena) and Q = 5,300 (the final pass) —
     every 7th arena slot tombstoned: (sq, gid, slot) bitwise equal to the
-    plain version; kernel (eager, graph-replayed and host), plain and
-    library times, the bound."""
+    plain version (over blocks of query rows where Q·N passes 2²⁸: each
+    row's selection is its own); kernel (eager, graph-replayed and host),
+    plain and library times, the bound."""
     from repro_torch.kernels import topk_l2 as tk
 
     out = {}
@@ -304,8 +331,18 @@ def check_scan(dev, pts, queries, r, shapes=((64, 4096), (5300, 4096)), k=10,
         gids = torch.arange(n, device=dev, dtype=torch.int32)
         gids[::7] = -1  # tombstoned arena slots
         r_sq = tk.radius_sq_upper(torch.full((nq,), r, device=dev))
+        big = nq * n > 1 << 28
+
+        def plain():
+            if not big:
+                return tk.topk_plain(q, p, gids, r_sq, k)
+            step = max(1, (1 << 26) // n)
+            parts = [tk.topk_plain(q[i:i + step], p, gids, r_sq[i:i + step], k)
+                     for i in range(0, nq, step)]
+            return tuple(torch.cat(x) for x in zip(*parts))
+
         got = tk.topk_cuda(q, p, gids, r_sq, k)
-        want = tk.topk_plain(q, p, gids, r_sq, k)
+        want = plain()
         torch.cuda.synchronize()
         for what, x, y in zip(("sq", "gid", "slot"), got, want):
             if not torch.equal(x, y):
@@ -321,8 +358,7 @@ def check_scan(dev, pts, queries, r, shapes=((64, 4096), (5300, 4096)), k=10,
         ms = time_ms(kernel, reps=20)
         graph_ms = time_graph_ms(kernel)
         host_ms = time_host_ms(kernel)
-        plain_ms = time_ms(lambda: tk.topk_plain(q, p, gids, r_sq, k),
-                           reps=3, warmup=1)
+        plain_ms = time_ms(plain, reps=1 if big else 3, warmup=1)
         library_ms = time_ms(library, reps=10)
         # per pair: the expansion form and two compares (gate, k-th key);
         # inputs read once, the (Q, k) triple written once
@@ -359,33 +395,65 @@ def check_determinism(pts, spec, dev):
         f"(n_nodes={a.n_nodes}, build_s={t1 - t0:.3f})")
 
 
-def brute_referent(idx, queries, k, r, dev, chunk=128):
-    """Exact constrained k-NN over the live set in the index's own
-    arithmetic: segment-resident points by the difference form (the
-    leaf kernel's plain version over every live segment point), arena
-    points by the topk_l2 kernel's plain version over the snapshot's
-    arena, the two parts folded by the engine's merge."""
+def _live_parts(idx):
+    """The live points of a single-device or sharded index, with global
+    ids, as the index holds them: (segment points, segment gids) on the
+    host, and each delta arena's (points, gids) tensors on its device."""
+    if hasattr(idx, "shards"):  # sharded: local ids through g_of[s]
+        snap = idx.snapshot()
+        seg, arenas = [], []
+        for s, (sub, sub_snap) in enumerate(zip(idx.shards, snap.shards)):
+            g_of = snap.g_of[s]
+            seg += [(p, g_of[g]) for p, g in (v.live_points() for v in sub.segments)]
+            if sub_snap.delta_n_live:
+                dg = sub_snap.delta_gids.long()
+                table = torch.from_numpy(g_of).to(dg.device)
+                glob = torch.where(dg >= 0, table[dg.clamp(min=0)], -1)
+                arenas.append((sub_snap.delta_points, glob.to(torch.int32)))
+        return seg, arenas
+    snap = idx.snapshot()
+    arenas = ([(snap.delta_points, snap.delta_gids)] if snap.delta_n_live else [])
+    return [s.live_points() for s in idx.segments], arenas
+
+
+def brute_referent(idx, queries, k, r, dev):
+    """Exact constrained k-NN over the live set of a single-device or a
+    sharded index, in the index's own arithmetic (`referent`): its
+    segments' live points by the difference form, each delta arena by
+    the expansion form."""
+    seg_parts, arenas = _live_parts(idx)
+    return referent(np.concatenate([p for p, _ in seg_parts]),
+                    np.concatenate([g for _, g in seg_parts]),
+                    arenas, queries, k, r, dev)
+
+
+def referent(seg_pts, seg_gids, arenas, queries, k, r, dev, chunk=128):
+    """Exact constrained k-NN by brute force: the points (seg_pts,
+    seg_gids) by the difference form (the leaf kernel's plain version, as
+    a tree's leaf scans compute it), each (points, gids) tensor pair of
+    `arenas` by the expansion form (the topk_l2 kernel's plain version,
+    as an arena or a brute scan computes it), the parts folded by the
+    engine's merge; `seg_pts` None: arenas only."""
     from repro_torch.kernels import topk_l2 as tk
     from repro_torch.kernels.ops import _refine
     from repro_torch.query import merge as qmerge
 
-    snap = idx.snapshot()
-    seg_parts = [s.live_points() for s in idx.segments]
-    sp = torch.from_numpy(np.concatenate([p for p, _ in seg_parts])).to(dev)
-    sg = torch.from_numpy(
-        np.concatenate([g for _, g in seg_parts]).astype(np.int32)).to(dev)
+    if seg_pts is not None:
+        sp = torch.from_numpy(np.asarray(seg_pts, np.float32)).to(dev)
+        sg = torch.from_numpy(np.asarray(seg_gids).astype(np.int32)).to(dev)
     out_d, out_g = [], []
     for lo in range(0, len(queries), chunk):
         q = torch.from_numpy(queries[lo:lo + chunk].astype(np.float32)).to(dev)
         nq = q.shape[0]
         rb = torch.full((nq,), r, device=dev)
         r_sq = tk.radius_sq_upper(rb)
-        sq, g, _ = tk.leaf_topk_plain(
-            q, sp[None].expand(nq, -1, -1), sg[None].expand(nq, -1), r_sq, k)
-        parts = [_refine(sq, g, rb)]
-        if snap.delta_n_live:
-            dsq, dg, _ = tk.topk_plain(q, snap.delta_points, snap.delta_gids,
-                                       r_sq, k)
+        parts = []
+        if seg_pts is not None:
+            sq, g, _ = tk.leaf_topk_plain(
+                q, sp[None].expand(nq, -1, -1), sg[None].expand(nq, -1), r_sq, k)
+            parts.append(_refine(sq, g, rb))
+        for ap, ag in arenas:
+            dsq, dg, _ = tk.topk_plain(q, ap, ag, r_sq, k)
             parts.append(_refine(dsq, dg, rb))
         d, g = qmerge.merge_parts(parts, k)
         out_d.append(d.cpu().numpy())
@@ -395,7 +463,7 @@ def brute_referent(idx, queries, k, r, dev, chunk=128):
 
 SPANS = ("engine.dispatch", "search.phase1", "search.gather", "search.kernel",
          "search.rescore", "search.merge", "engine.stack", "engine.delta",
-         "engine.merge")
+         "engine.merge", "shard.fold")
 
 
 def profile_pass(fn) -> dict:
@@ -462,6 +530,31 @@ def profile_pass(fn) -> dict:
         "device_idle_share": 1.0 - busy_us / wall_us,
         "device_events": len(intervals),
     }
+
+
+def span_sums(names) -> dict:
+    """Host seconds recorded so far under each span name (the obs
+    registry's `span.<name>` histograms)."""
+    from repro_torch import obs
+
+    return {name: obs.REGISTRY.histogram(f"span.{name}", unit="s").sum
+            for name in names}
+
+
+def span_split(fn) -> dict:
+    """Run `fn` once, unprofiled, and split its host time by the index's
+    spans (nested spans count inside their parents, as in
+    `profile_pass`): seconds of the run and of each span within it.
+    Cheap where the profiler is not: its trace of a four-shard pass is
+    slow to read."""
+    s0 = span_sums(SPANS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    s1 = span_sums(SPANS)
+    return {"pass_s": wall, "span_s": {n: s1[n] - s0[n] for n in SPANS}}
 
 
 def check_referent(res, bd, bg, what):
@@ -612,7 +705,234 @@ def run_main(dev, pts, queries, r):
                                            "tiered_merges", "purge_merges")},
     }
     log("main: summary " + json.dumps(summary))
-    return launches
+    return launches, idx
+
+
+# -- phase 6: the distributed index ----------------------------------------------
+N_SHARDS = 4
+# phase 6 (b): query batches timed one by one
+SHARD_BATCHES, SHARD_BATCH = 16, 64
+
+
+def _result(ids, dist):
+    from repro_torch.index.search import StreamResult
+
+    return StreamResult(gids=np.asarray(ids, np.int64),
+                        distances=np.asarray(dist, np.float32))
+
+
+def _same_answers(a, b, what):
+    for part, x, y in (("ids", a.gids, b.gids),
+                       ("distances", a.distances, b.distances)):
+        if not np.array_equal(x, y):
+            bad = np.nonzero((x != y).any(1))[0]
+            raise AssertionError(f"{what}: {part} differ in {len(bad)} rows, "
+                                 f"e.g. {bad[:3].tolist()}")
+
+
+def run_static(dev, pts, queries, r, k, spec):
+    """(a) `build_sharded` over all the points and `constrained_knn` (the
+    four shards' trees stacked into one walk on the card), ids == a
+    brute referent in the trees' arithmetic; `brute_constrained_knn`
+    over the first 499,998 points (padded to an even split: gid -1 in two
+    slots), ids == a brute referent in topk_l2's arithmetic."""
+    from repro_torch.core import distributed
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    index = distributed.build_sharded(pts, dev, spec, n_shards=N_SHARDS)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ids, dist = distributed.constrained_knn(index, queries, k, r)
+    t_query = time.perf_counter() - t0
+    launches_tree = ops.launch_counts()["topk_l2"]
+    sub = pts[:len(pts) - 2]
+    t0 = time.perf_counter()
+    bids, bdist = distributed.brute_constrained_knn(
+        sub, dev, queries, k, r, n_shards=N_SHARDS)
+    t_brute = time.perf_counter() - t0
+    launches_brute = ops.launch_counts()["topk_l2"] - launches_tree
+
+    bd, bg = referent(pts, np.arange(len(pts)), [], queries, k, r, dev)
+    derr = check_referent(_result(ids, dist), bd, bg, "distributed(a) tree")
+    p_dev = torch.from_numpy(sub.astype(np.float32)).to(dev)
+    g_dev = torch.arange(len(sub), dtype=torch.int32, device=dev)
+    bd2, bg2 = referent(None, None, [(p_dev, g_dev)], queries, k, r, dev)
+    derr2 = check_referent(_result(bids, bdist), bd2, bg2, "distributed(a) brute")
+    out = {"n_points": len(pts), "n_shards": index.n_shards,
+           "nodes_per_shard": [t.n_nodes for t in index.trees],
+           "build_s": t_build, "query_s": t_query, "brute_points": len(sub),
+           "brute_s": t_brute, "topk_l2_launches_tree": launches_tree,
+           "topk_l2_launches_brute": launches_brute,
+           "max_abs_dist_vs_referent": [derr, derr2]}
+    log(f"distributed(a): build_sharded {len(pts)} points over {index.n_shards} "
+        f"shards in {t_build:.3f} s; constrained_knn of {len(queries)} queries in "
+        f"{t_query:.3f} s, ids == brute referent; brute_constrained_knn over "
+        f"{len(sub)} points in {t_brute:.3f} s ({launches_brute} topk_l2 launches), "
+        f"ids == brute referent")
+    return out
+
+
+def run_sharded(dev, pts, queries, r, k, spec, tmp, want_flushed):
+    """(b) and (c): the sharded streaming index, four shards on the card,
+    WALs in `tmp`: phase 3's ingest (one checkpoint midway), 16 timed
+    batches of 64 queries, the 5,300 queries (ids == brute referent),
+    then flushed: answers bitwise equal to `want_flushed`, the flushed
+    single-device index's. Then shard 1 down: a partial answer without
+    its gids, counted; close, reopen from the WALs: answers bitwise
+    equal to the pre-close ones."""
+    from repro_torch import obs
+    from repro_torch.index import ShardedStreamingIndex, StreamingConfig, faults
+
+    cfg = StreamingConfig(dim=2, delta_capacity=4096, spec=spec, merge_factor=4,
+                          storage_dtype="bfloat16", device=str(dev))
+    wal_dir = os.path.join(tmp, "sharded")
+    sh = ShardedStreamingIndex(cfg, n_shards=N_SHARDS, devices=[dev],
+                               wal_dir=wal_dir)
+
+    def checkpoint_midway(b, batches):
+        if b == batches // 2:
+            sh.checkpoint()
+
+    ing = ingest(sh, pts, after_add=checkpoint_midway)
+
+    def counter(name):
+        return obs.snapshot()["counters"].get(name, 0)
+
+    full0 = counter("engine.stack_cache{kind=full_build}")
+    incr0 = counter("engine.stack_cache{kind=incremental}")
+    lat = []
+    for b in range(SHARD_BATCHES):
+        off = (b * SHARD_BATCH) % (len(queries) - SHARD_BATCH)
+        t0 = time.perf_counter()
+        sh.constrained_knn(queries[off:off + SHARD_BATCH], k, r)
+        lat.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = sh.constrained_knn(queries, k, r)
+    t_pass = time.perf_counter() - t0
+    stack_full = counter("engine.stack_cache{kind=full_build}") - full0
+    stack_incr = counter("engine.stack_cache{kind=incremental}") - incr0
+    bd, bg = brute_referent(sh, queries, k, r, dev)
+    derr = check_referent(res, bd, bg, "distributed(b) sharded")
+    split = span_split(lambda: sh.constrained_knn(queries, k, r))
+    log("distributed(b): host split of one pass by span " + json.dumps(split))
+
+    sh.flush()
+    t0 = time.perf_counter()
+    flushed = sh.constrained_knn(queries, k, r)
+    t_flushed = time.perf_counter() - t0
+    _same_answers(flushed, want_flushed, "distributed(b) flushed sharded vs "
+                  "flushed single-device")
+    lat_ms = np.asarray(lat) * 1e3
+    st = sh.stats()
+    out_b = {
+        "n_shards": sh.n_shards, "devices": [str(d) for d in sh.devices],
+        "bulk_load_s": ing["bulk_s"],
+        "inserts_per_s": ing["inserted"] / ing["insert_s"],
+        "deleted": ing["deleted"],
+        "batch64_p50_ms": float(np.percentile(lat_ms, 50)),
+        "batch64_p99_ms": float(np.percentile(lat_ms, 99)),
+        "queries_5300_s": t_pass, "queries_5300_flushed_s": t_flushed,
+        "stack_cache_full_builds": stack_full,
+        "stack_cache_incremental": stack_incr,
+        "query_batches": SHARD_BATCHES + 1,
+        "n_live_per_shard": st["n_live_per_shard"],
+        "n_segments_per_shard": st["n_segments_per_shard"],
+        "max_abs_dist_vs_referent": derr, "host_split": split,
+    }
+    log(f"distributed(b): {ing['inserted']} inserts over {sh.n_shards} shards at "
+        f"{out_b['inserts_per_s']:.0f}/s (WALs on); {SHARD_BATCHES} batches of "
+        f"{SHARD_BATCH} p50 {out_b['batch64_p50_ms']:.3f} ms p99 "
+        f"{out_b['batch64_p99_ms']:.3f} ms; {len(queries)} queries in {t_pass:.3f} s, "
+        f"ids == brute referent; flushed: {t_flushed:.3f} s, bitwise equal to the "
+        f"flushed single-device index; engine.stack_cache full builds {stack_full}, "
+        f"incremental {stack_incr}")
+
+    # (c) failover, then recovery
+    fo0 = counter("shard.failovers{shard=1}")
+    rt0 = counter("shard.search_retries{shard=1}")
+    with faults.active():
+        faults.arm("shard.search", shard=1, exc=faults.InjectedFault)
+        t0 = time.perf_counter()
+        part = sh.constrained_knn(queries, k, r)
+        t_part = time.perf_counter() - t0
+    valid = part.gids[part.gids >= 0]
+    if not part.partial or not len(valid) or np.any(valid % N_SHARDS == 1):
+        raise AssertionError("distributed(c): shard 1 down, the answer is not a "
+                             "flagged partial one without its gids")
+    for i in range(len(queries)):
+        want = [g for g in flushed.gids[i].tolist() if g >= 0 and g % N_SHARDS != 1]
+        if part.gids[i][:len(want)].tolist() != want:
+            raise AssertionError(f"distributed(c): partial row {i} is not the full "
+                                 f"answer without shard 1: {part.gids[i]} vs {want}")
+    failovers = counter("shard.failovers{shard=1}") - fo0
+    retries = counter("shard.search_retries{shard=1}") - rt0
+    if failovers != 1:
+        raise AssertionError(f"distributed(c): shard.failovers counted {failovers}")
+    live_before = sh.live_gids()
+    sh.close()
+    t0 = time.perf_counter()
+    rec = ShardedStreamingIndex(cfg, n_shards=N_SHARDS, devices=[dev],
+                                wal_dir=wal_dir)
+    torch.cuda.synchronize()
+    t_recover = time.perf_counter() - t0
+    if not np.array_equal(rec.live_gids(), live_before):
+        raise AssertionError("distributed(c): recovered live gid set differs")
+    after = rec.constrained_knn(queries, k, r)
+    _same_answers(after, flushed, "distributed(c) recovered vs pre-close")
+    rstats = rec.stats()["shards"]
+    rec.close()
+    out_c = {"partial_query_s": t_part, "failovers": failovers, "retries": retries,
+             "recovery_s": t_recover,
+             "checkpoint_loads": [p["checkpoint_loads"] for p in rstats],
+             "wal_records_replayed": [p["wal_replayed"] for p in rstats],
+             "wal_bytes": sum(os.path.getsize(os.path.join(wal_dir, f))
+                              for f in os.listdir(wal_dir) if f.endswith(".wal"))}
+    log(f"distributed(c): shard 1 down: partial answer in {t_part:.3f} s without "
+        f"its gids, the full answer's other ids in order; failovers {failovers}, "
+        f"retries {retries}; recovery from {N_SHARDS} WALs in {t_recover:.3f} s "
+        f"(checkpoint loads {out_c['checkpoint_loads']}, records replayed "
+        f"{out_c['wal_records_replayed']}), {len(queries)} answers bitwise equal "
+        f"to the pre-close ones")
+    return out_b, out_c
+
+
+def run_distribution(dev, pts, queries, r, tmp, single):
+    """Phase 6: the distributed index on the card, its launches counted
+    from 0 over (a)–(c); `single` is phase 3's index (the same ingest),
+    flushed and answered first, outside the count."""
+    from repro_torch.core import TreeSpec
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import topk_l2 as tk
+
+    k = 10
+    spec = TreeSpec.ballstar(leaf_size=32)
+    single.flush()
+    want_flushed = single.constrained_knn(queries, k, r)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    static = run_static(dev, pts, queries, r, k, spec)
+    t1 = time.perf_counter()
+    out_b, out_c = run_sharded(dev, pts, queries, r, k, spec, tmp, want_flushed)
+    torch.cuda.synchronize()
+    seconds = {"static_a": t1 - t0, "sharded_bc": time.perf_counter() - t1}
+    launches = ops.launch_counts()
+    shapes = dict(tk.LAUNCH_SHAPES)
+    if launches["leaf_topk"] <= 0 or launches["topk_l2"] <= 0:
+        raise AssertionError(f"a kernel of the distributed path never launched: "
+                             f"{launches}")
+    if not any(key[0] == "topk_l2" and key[2] > 100_000 for key in shapes):
+        raise AssertionError("brute_constrained_knn never reached topk_l2 at a "
+                             "shard's width")
+    summary = {"static": static, "sharded": out_b, "failover_recovery": out_c,
+               "launches": launches, "topk_l2_launches_by_q": tk.launches_by_q(),
+               "seconds": seconds}
+    log(f"distributed: launches {launches}, topk_l2 by Q {tk.launches_by_q()}")
+    log("distributed: summary " + json.dumps(summary))
+    return launches, shapes, summary
 
 
 # -- phase 4: the kernel primitives and the host layer ---------------------------
@@ -956,12 +1276,7 @@ def run_durable(dev, pts, queries, r, tmp):
     if not np.array_equal(rec.live_gids(), live_before):
         raise AssertionError("recovered live gid set differs from the pre-close one")
     after = rec.constrained_knn(queries, k, r)
-    for what, x, y in (("ids", after.gids, before.gids),
-                       ("distances", after.distances, before.distances)):
-        if not np.array_equal(x, y):
-            bad = np.nonzero((x != y).any(1))[0]
-            raise AssertionError(f"recovered {what} differ from the pre-close "
-                                 f"answers in {len(bad)} rows, e.g. {bad[:3].tolist()}")
+    _same_answers(after, before, "recovered vs pre-close answers")
     bd, bg = brute_referent(rec, queries, k, r, dev)
     derr = check_referent(after, bd, bg, "recovered index")
     if rs["checkpoint_loads"] != 1 or rs["wal_replayed"] <= 0:
@@ -1015,11 +1330,7 @@ def run_serve(rec, queries, r, direct):
     spans = ("search.phase1", "engine.plan", "engine.stack", "engine.dispatch",
              "engine.delta", "engine.merge")
 
-    def span_sums():
-        return {name: obs.REGISTRY.histogram(f"span.{name}", unit="s").sum
-                for name in spans}
-
-    span0 = span_sums()
+    span0 = span_sums(spans)
     ops.reset_launch_counts()
     n_req = SERVE_CLIENTS * SERVE_PER_CLIENT
     replies = [None] * n_req
@@ -1044,7 +1355,7 @@ def run_serve(rec, queries, r, direct):
     launches = ops.launch_counts()
     by_q = tk.launches_by_q()
     shapes = dict(tk.LAUNCH_SHAPES)
-    span1 = span_sums()
+    span1 = span_sums(spans)
     per_class = {b: fe._c_dispatch[b].value - base[b] for b in cfg.batch_classes}
     n_dispatch = sum(per_class.values())
     for i, reply in enumerate(replies):
@@ -1082,22 +1393,22 @@ def run_serve(rec, queries, r, direct):
     return launches, summary, shapes
 
 
-def check_serve_shapes(dev, pts, queries, r, shapes, launches):
-    """(b), then: both read-path kernels at every call shape the serving
-    run gave them (`topk_l2.LAUNCH_SHAPES`, read after stop()) against
-    their plain versions on the same inputs, bitwise — leaf_topk on
-    random candidates at a dispatch's (R, C, D, k', storage), topk_l2 on
-    the main path's points and queries at its (Q, N) — with kernel,
-    plain and library times and the bound. These launches come after
-    the serving run's counts were read. Returns the per-shape readings
-    of each kernel."""
+def check_serve_shapes(dev, pts, queries, r, shapes, launches, label="serve"):
+    """Phase 5 (b) and phase 6 (d): both read-path kernels at every call
+    shape a run gave them (`topk_l2.LAUNCH_SHAPES`, read when the run
+    ended) against their plain versions on the same inputs, bitwise —
+    leaf_topk on random candidates at a dispatch's (R, C, D, k',
+    storage), topk_l2 on the main path's points and queries at its
+    (Q, N) — with kernel, plain and library times and the bound. These
+    launches come after the run's counts were read. Returns the
+    per-shape readings of each kernel."""
     gen = torch.Generator(device=dev).manual_seed(2)
     out = {"leaf_topk": [], "topk_l2": []}
     for key, n_launch in sorted(shapes.items()):
         if key[0] == "leaf_topk":
             _, rows, c, d, kp, dtype = key
             v = _leaf_case(dev, gen, rows, c, d, kp, dtype, reps=10)
-            log(f"serve kernel leaf_topk[{dtype}] R={rows} C={c} D={d} "
+            log(f"{label} kernel leaf_topk[{dtype}] R={rows} C={c} D={d} "
                 f"k'={kp} ({n_launch} launches): kernel_ms={v['ms']:.5f} "
                 f"plain_ms={v['plain_ms']:.4f} bound_ms={v['bound_ms']:.6f}; "
                 f"outputs bitwise equal to the plain version")
@@ -1115,12 +1426,12 @@ def check_serve_shapes(dev, pts, queries, r, shapes, launches):
             hits = (torch.cdist(qa, pa) <= r).sum(1)
             order = torch.argsort(hits, descending=True, stable=True).cpu().numpy()
             (v,) = check_scan(dev, pts, queries[order], r, shapes=((m, n),), k=k,
-                              label=f"serve kernel ({n_launch} launches)").values()
+                              label=f"{label} kernel ({n_launch} launches)").values()
             out["topk_l2"].append({"k": k, "launches": n_launch, **v})
     for name, rows in out.items():
         checked = sum(row["launches"] for row in rows)
         if checked != launches[name] or not rows:
-            raise AssertionError(f"{name}: {launches[name]} serving launches, "
+            raise AssertionError(f"{name}: {launches[name]} {label} launches, "
                                  f"{checked} of them at checked shapes")
     return out
 
@@ -1155,18 +1466,38 @@ def main() -> int:
             log("ptxas: " + line.strip())
 
     pts, queries, r = main_data()
+    seconds = {}  # wall seconds of each phase, its checks included
+    t0 = time.perf_counter()
+
+    def lap(phase):
+        nonlocal t0
+        t1 = time.perf_counter()
+        seconds[phase] = t1 - t0
+        t0 = t1
 
     gen = torch.Generator(device=dev).manual_seed(0)
     leaf_variants, leaf_err = check_leaf(dev, gen)
     scan = check_scan(dev, pts, queries, r)
+    lap("kernels")
 
-    launches = run_main(dev, pts, queries, r)
+    launches, single = run_main(dev, pts, queries, r)
+    lap("main")
     prim_launches, pair, cov = run_primitives(dev, pts, queries)
+    lap("primitives")
     with tempfile.TemporaryDirectory() as tmp:
         rec, direct, _ = run_durable(dev, pts, queries, r, tmp)
         serve_launches, serve, serve_shapes = run_serve(rec, queries, r, direct)
         rec.close()
     served = check_serve_shapes(dev, pts, queries, r, serve_shapes, serve_launches)
+    lap("serve")
+    with tempfile.TemporaryDirectory() as tmp:
+        dist_launches, dist_shapes, dist = run_distribution(
+            dev, pts, queries, r, tmp, single)
+    del single
+    dist_checked = check_serve_shapes(dev, pts, queries, r, dist_shapes,
+                                      dist_launches, label="distributed")
+    lap("distributed")
+    log("phase seconds " + json.dumps(seconds))
 
     bf = leaf_variants["bfloat16"]
     kernels = [
@@ -1178,7 +1509,9 @@ def main() -> int:
             "library_ms": None,
             "variants": {**leaf_variants,
                          "serve": {"launches": serve_launches["leaf_topk"],
-                                   "shapes": served["leaf_topk"]}},
+                                   "shapes": served["leaf_topk"]},
+                         "distribution": {"launches": dist_launches["leaf_topk"],
+                                          "shapes": dist_checked["leaf_topk"]}},
         },
         {
             # the final pass's shape, Q = 5,300, as in earlier runs; the
@@ -1194,7 +1527,10 @@ def main() -> int:
             "variants": {**scan, "serve": {
                 "launches": serve_launches["topk_l2"],
                 "launches_by_q": serve["topk_l2_launches_by_q"],
-                "shapes": served["topk_l2"]}},
+                "shapes": served["topk_l2"]}, "distribution": {
+                "launches": dist_launches["topk_l2"],
+                "launches_by_q": dist["topk_l2_launches_by_q"],
+                "shapes": dist_checked["topk_l2"]}},
         },
     ]
     for name, src, replaces, res, main_key in (

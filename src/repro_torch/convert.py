@@ -4,7 +4,8 @@
 numpy arrays — both builders return numpy) and returns the port's own
 `Tree`, so tests can run the reference and the port on the SAME tree
 and compare paper-metric counts exactly. No import of the reference is
-needed: the fields are read by name.
+needed: the fields are read by name. `sharded_index_from_reference`
+does the same for the reference's `distributed.ShardedIndex`.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import dataclasses
 
 import numpy as np
 
+from .core import distributed as _distributed
 from .core import search as _search
 from .core.types import Tree, TreeSpec
 
@@ -39,4 +41,17 @@ def device_tree(tree, device="cuda", dtype=None) -> _search.DeviceTree:
 
     return _search.device_tree(
         tree_from_reference(tree), dtype or torch.float32, device
+    )
+
+
+def sharded_index_from_reference(index, device="cuda") -> _distributed.ShardedIndex:
+    """The port's `ShardedIndex` over the reference's per-shard host trees
+    and shard offsets, every shard on `device` (a device, or a list of
+    them for round-robin placement)."""
+    devs = _distributed.device_list(device)
+    trees = [tree_from_reference(t) for t in index.trees]
+    return _distributed.from_trees(
+        trees,
+        np.asarray(index.shard_offsets, np.int64),
+        [devs[s % len(devs)] for s in range(len(trees))],
     )

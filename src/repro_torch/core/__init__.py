@@ -11,10 +11,12 @@ Two builders behind `build(..., backend=...)`, both returning the shared
 `search` is the batched device traversal (the reference's `search_jax`);
 `search_host` the paper's searches on the host with their node counts,
 `brute` the exact oracles, `pca` the host power iteration and the exact
-eigenvector. The distributed index waits for a later slice.
+eigenvector; `distributed` the sharded static index and the distributed
+brute baseline.
 """
 from .types import Tree, TreeSpec  # noqa: F401
 from . import brute, build_host, search, search_host  # noqa: F401
+from . import distributed  # noqa: F401
 from .build import build as _build_torch
 from .pca import first_component_exact, first_component_host  # noqa: F401
 

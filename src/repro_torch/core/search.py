@@ -292,17 +292,27 @@ def _map_gids(local, gids):
     return torch.where(local >= 0, g, -1)
 
 
+def constrained_knn_stacked_parts(dts: DeviceTree, gids, queries, r, k: int,
+                                  stack_size: int):
+    """The classic loop over S stacked trees without the fold: the S
+    per-tree sorted k-bests, ``distances (S, Q, k)`` and ``global ids
+    (S, Q, k)``, and the walk (its counts) — the parts a caller folds
+    (`constrained_knn_stacked`; the sharded index, across devices)."""
+    s, nq = dts.center.shape[0], queries.shape[0]
+    rb = _radius(r, nq, dts.center.dtype, dts.center.device)
+    w = _walk(dts, queries, rb, k, stack_size)
+    dist, idx = _refine(w.best_sq, w.best_i, rb.repeat(s))
+    return dist.reshape(s, nq, k), _map_gids(idx.reshape(s, nq, k), gids), w
+
+
 def constrained_knn_stacked(dts: DeviceTree, gids, queries, r, k: int,
                             stack_size: int) -> StackedResult:
     """All S same-shape segments in one batched loop: local hits mapped
     to global ids, the S sorted k-bests folded with the unified merge."""
     s, nq = dts.center.shape[0], queries.shape[0]
-    rb = _radius(r, nq, dts.center.dtype, dts.center.device)
-    w = _walk(dts, queries, rb, k, stack_size)
-    dist, idx = _refine(w.best_sq, w.best_i, rb.repeat(s))
-    d, g = _merge_segments(
-        dist.reshape(s, nq, k), _map_gids(idx.reshape(s, nq, k), gids), k
-    )
+    dd, gg, w = constrained_knn_stacked_parts(dts, gids, queries, r, k,
+                                              stack_size)
+    d, g = _merge_segments(dd, gg, k)
     return StackedResult(
         gids=g,
         distances=d,

@@ -17,13 +17,20 @@ exact — so search equals a fresh static build over the live set.
 
 Durability: a write-ahead log (`wal`) and atomic checkpoints
 (`checkpoint`) in the reference's file formats, and the deterministic
-fault injection (`faults`) that drives their crash tests. Sharding waits
-for a later slice.
+fault injection (`faults`) that drives their crash tests. `sharded` is
+the index sharded over devices, with degraded-mode failover and
+per-shard recovery.
 """
 from . import checkpoint, faults, wal  # noqa: F401
 from .delta import DeltaBuffer  # noqa: F401
 from .search import StreamResult, constrained_knn, knn  # noqa: F401
 from .segment import Segment, merge_segments, plan_merges, tier_of  # noqa: F401
+from .sharded import (  # noqa: F401
+    FailoverPolicy,
+    ShardedSnapshot,
+    ShardedStreamingIndex,
+    data_devices,
+)
 from .snapshot import SegmentView, Snapshot  # noqa: F401
 from .streaming import StreamingConfig, StreamingIndex  # noqa: F401
 from .tombstones import TombstoneLog  # noqa: F401

@@ -6,8 +6,7 @@ Production code exposes *sites* — named points on the failure surface —
 by calling ``fire(site, **labels)``:
 
     ``shard.search``      one shard's per-query engine dispatch
-                          (labels: shard; the sharded index is not
-                          ported yet, so nothing fires it here)
+                          (labels: shard; `index/sharded.py`)
     ``frontend.dispatch`` one frontend batch dispatch
     ``wal.append``        one WAL record append
     ``checkpoint.step``   every durability step of a checkpoint write

@@ -117,8 +117,9 @@ def pairwise_cuda(q: torch.Tensor, p: torch.Tensor, *,
     scratch = torch.empty(
         lib.pairwise_sq_l2_scratch_bytes(code, _ROUTE_CODES[name], m, n, d),
         dtype=torch.uint8, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    index = q.device.index
+    with cuda_lib.on_device(index):
+        stream = cuda_lib.current_stream(index)
         err = lib.pairwise_sq_l2_launch(
             code, _ROUTE_CODES[name], q.data_ptr(), p.data_ptr(), m, n, d,
             scratch.data_ptr(), out.data_ptr(), stream,

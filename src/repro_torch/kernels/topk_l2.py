@@ -290,8 +290,9 @@ def leaf_topk_cuda(q, cands, cgids, r_sq, k: int, cscale=None):
         _check(cscale, "cscale", torch.float32, (rows, c), device)
     out = _outputs(rows, k, device)
     lib = cuda_lib.library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+    index = device.index
+    with cuda_lib.on_device(index):
+        stream = cuda_lib.current_stream(index)
         err = lib.leaf_topk_launch(
             code, q.data_ptr(), cands.data_ptr(),
             cscale.data_ptr() if cscale is not None else None,

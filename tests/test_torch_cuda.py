@@ -406,3 +406,76 @@ def test_frontend_over_card_index_matches_direct(dev):
     for i, reply in enumerate(replies):
         np.testing.assert_array_equal(reply.gids, direct.gids[i])
         np.testing.assert_array_equal(reply.distances, direct.distances[i])
+
+
+def _sharded_pair(devices, seed=11):
+    """A 4-shard index (shards round-robin over `devices`) and a
+    single-device index fed the same ops: 1,500 points in 8-D in odd
+    batches, a tenth deleted, then flushed."""
+    from repro_torch.index import (
+        ShardedStreamingIndex,
+        StreamingConfig,
+        StreamingIndex,
+    )
+
+    mk = lambda: StreamingConfig(dim=8, delta_capacity=128,  # noqa: E731
+                                 device=str(devices[0]))
+    sh = ShardedStreamingIndex(mk(), n_shards=4, devices=devices)
+    ref = StreamingIndex(mk())
+    rng = np.random.default_rng(seed)
+    for n in (301, 499, 77, 623):
+        pts = rng.normal(size=(n, 8)).astype(np.float32)
+        np.testing.assert_array_equal(sh.add(pts), ref.add(pts))
+    dead = rng.choice(ref.live_gids(), size=150, replace=False)
+    assert sh.delete(dead) == ref.delete(dead) == 150
+    sh.flush()
+    ref.flush()
+    return sh, ref, rng.normal(size=(64, 8)).astype(np.float32)
+
+
+def test_sharded_on_one_card_equals_single_device(dev):
+    """4 shards on one card: after a flush, answers bitwise equal to the
+    single-device index, through both read-path kernels."""
+    sh, ref, q = _sharded_pair([dev])
+    assert {d.type for d in sh.devices} == {"cuda"}
+    ops.reset_launch_counts()
+    got = sh.constrained_knn(q, 5, 2.5)
+    assert ops.launch_counts()["leaf_topk"] > 0
+    want = ref.constrained_knn(q, 5, 2.5)
+    np.testing.assert_array_equal(got.gids, want.gids)
+    np.testing.assert_array_equal(got.distances, want.distances)
+    assert not got.partial and (got.gids >= 0).any()
+
+
+def test_sharded_brute_kernel_equals_plain(dev, monkeypatch):
+    """`brute_constrained_knn` at a few thousand points a shard: the
+    answer through the topk_l2 kernel equals the same call with the
+    kernel's plain version in its place, on the card, bitwise."""
+    from repro_torch.core import distributed
+
+    rng = np.random.default_rng(12)
+    pts = rng.normal(size=(13_998, 3)).astype(np.float32)
+    q = rng.normal(size=(300, 3)).astype(np.float32)
+    ops.reset_launch_counts()
+    gi, gd = distributed.brute_constrained_knn(pts, dev, q, 10, 0.4, n_shards=4)
+    assert ops.launch_counts()["topk_l2"] == 2 * 4
+    monkeypatch.setattr(tk, "topk_cuda", tk.topk_plain)
+    wi, wd = distributed.brute_constrained_knn(pts, dev, q, 10, 0.4, n_shards=4)
+    assert ops.launch_counts()["topk_l2"] == 2 * 4
+    np.testing.assert_array_equal(gi, wi)
+    np.testing.assert_array_equal(gd, wd)
+    assert (gi >= 0).any()
+
+
+def test_sharded_across_cards_equals_single_device(dev):
+    """Shards round-robin over two cards, the fold on the first: bitwise
+    equal to the single-device index."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    devs = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    sh, ref, q = _sharded_pair(devs)
+    assert [d.index for d in sh.devices] == [0, 1, 0, 1]
+    got = sh.constrained_knn(q, 5, 2.5)
+    want = ref.constrained_knn(q, 5, 2.5)
+    np.testing.assert_array_equal(got.gids, want.gids)
+    np.testing.assert_array_equal(got.distances, want.distances)
