@@ -106,6 +106,40 @@ Phases, in order; any failure raises and the script exits non-zero:
                    launched them against their plain versions, bitwise,
                    with times and bounds (as phase 5 (b)).
 
+  7. knnlm   — the kNN-LM serving path: qwen2-0.5b at its full published
+               width (24 layers, d = 896, 494,032,768 parameters) with
+               random weights from a seeded generator. First the serve
+               launcher (`repro_torch.launch.serve --retrieval`) runs
+               once; then the launch counts are set to 0 and:
+               (a) the model on the card, its parameter count; the same
+                   weights on the CPU: logits of a 64-token prompt, card
+                   against CPU; prefill(2,048) + 3 decode steps against
+                   forward(2,051) (three 1,024-chunks, the multi-chunk
+                   online softmax), within the reference's tolerance;
+               (b) `Engine.generate`, batch 4, 32-token prompts, 16 new
+                   tokens: greedy twice equal, two sampled requests
+                   differ, a seeded generator reproduces its draw;
+                   prefill ms, decode ms per token, tokens/s;
+               (c) a Datastore of 262,144 states (64 token batches of
+                   4 x 1,024: forward logits projected to 32-d, the next
+                   tokens as values; leaf_size 64, delta_capacity 256);
+                   3 decode steps (KNNLM_STEPS), each a `lookup` (k = 8,
+                   r = 0.6 x |std(keys)|), `knn_interpolate` (rows sum
+                   to 1) and an `add` of the step's states; every
+                   lookup's valid pattern, distances and values == a
+                   brute referent over the live set (exact duplicate
+                   keys may tie); then the added states evicted and all
+                   12 queries looked up and checked again; build
+                   seconds, lookups/s, the engine's fused / fallback
+                   dispatches, launches by call shape;
+               (d) both read-path kernels, D = 32 (their generic
+                   routes), against their plain versions, bitwise, with
+                   times and bounds: topk_l2 at every call shape (c)
+                   launched; leaf_topk, which (c) does not launch (its
+                   lookups overflow the fused traversal's frontier cap
+                   and take the classic loop), at the shape the fused
+                   path would give it.
+
 Kernel times ("ms") are CUDA-event means over back-to-back eager calls
 through the wrapper, what the port pays. For the two launch-bound
 kernels (topk_l2, cov_matvec) two more readings stand beside it:
@@ -261,14 +295,16 @@ def _pow2_scales(c: torch.Tensor, group: int) -> torch.Tensor:
 
 def _leaf_case(dev, gen, rows, c, d, kp, name, reps=20):
     """leaf_topk at one shape and storage type, on random candidates
-    around random queries with 10% dead slots and the gate r = 0.25:
+    around random queries (their distances spread alike at any D) with
+    10% dead slots and the gate r = 0.25:
     (sq, gid, slot) bitwise equal to the plain version (the kernel
     repeats its arithmetic, and the (sq, slot) keys are unique); kernel
     and plain times, the bound."""
     from repro_torch.kernels import topk_l2 as tk
 
     q = (torch.rand((rows, d), generator=gen, device=dev) * 8.0 - 4.0)
-    cands = q[:, None, :] + 0.3 * torch.randn(
+    # the same spread of distances at any D (0.3 a coordinate at D = 2)
+    cands = q[:, None, :] + 0.3 * (2.0 / d) ** 0.5 * torch.randn(
         (rows, c, d), generator=gen, device=dev)
     gids = torch.arange(rows * c, device=dev, dtype=torch.int32).reshape(rows, c)
     gids = torch.where(torch.rand((rows, c), generator=gen, device=dev) < 0.1,
@@ -318,7 +354,8 @@ def check_scan(dev, pts, queries, r, shapes=((64, 4096), (5300, 4096)), k=10,
                label="kernel"):
     """topk_l2 at the main path's shapes — Q = 64 (the 64-query batches
     against the whole 4,096-slot arena) and Q = 5,300 (the final pass) —
-    every 7th arena slot tombstoned: (sq, gid, slot) bitwise equal to the
+    or at `shapes` over `pts` of any D, every 7th arena slot tombstoned:
+    (sq, gid, slot) bitwise equal to the
     plain version (over blocks of query rows where Q·N passes 2²⁸: each
     row's selection is its own); kernel (eager, graph-replayed and host),
     plain and library times, the bound."""
@@ -362,16 +399,17 @@ def check_scan(dev, pts, queries, r, shapes=((64, 4096), (5300, 4096)), k=10,
         library_ms = time_ms(library, reps=10)
         # per pair: the expansion form and two compares (gate, k-th key);
         # inputs read once, the (Q, k) triple written once
-        plan = tk.block_plan(nq, n, 2, k)
+        d = p.shape[1]
+        plan = tk.block_plan(nq, n, d, k)
         bound_ms, bound_by = _bound(plan)
         found = int((want[1] >= 0).sum())
-        log(f"{label} topk_l2 Q={nq} N={n} D=2 k={k} blocks={plan['blocks']}: "
+        log(f"{label} topk_l2 Q={nq} N={n} D={d} k={k} blocks={plan['blocks']}: "
             f"kernel_ms={ms:.5f} graph_ms={graph_ms:.5f} host_ms={host_ms:.5f} "
             f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by}) "
             f"library_ms={library_ms:.4f}; (sq, gid, slot) bitwise equal to "
             f"the plain version, {found} neighbors found")
         out[f"q{nq}"] = {
-            "q": nq, "n": n, "ms": ms, "graph_ms": graph_ms, "host_ms": host_ms,
+            "q": nq, "n": n, "d": d, "ms": ms, "graph_ms": graph_ms, "host_ms": host_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "max_abs_err": 0.0,
             "blocks": plan["blocks"],
@@ -466,13 +504,16 @@ SPANS = ("engine.dispatch", "search.phase1", "search.gather", "search.kernel",
          "engine.merge", "shard.fold")
 
 
-def profile_pass(fn) -> dict:
+def profile_pass(fn, classes=None) -> dict:
     """Run `fn` once under torch.profiler and split it by the index's
     spans: per span name, the host ms of its ranges (profiler overhead
     included) and the device ms of the aten kernels launched inside
     them; per kernel of the port, its device ms and launches; for the
     whole pass, its host ms, the ms the device was busy (union of
-    kernel and copy intervals) and the device's idle share."""
+    kernel and copy intervals) and the device's idle share. `classes`
+    ({class: name substrings}) also sums the device events' ms and count
+    by the first class whose substring their name holds ("other" for
+    none)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -522,7 +563,15 @@ def profile_pass(fn) -> dict:
             end = hi
     if not intervals or wall_us <= 0:
         raise AssertionError("the profiler saw no device work in the pass")
+    by_class = {}
+    for ev in device if classes else ():
+        name = next((c for c, subs in classes.items()
+                     if any(sub in ev.name for sub in subs)), "other")
+        acc = by_class.setdefault(name, {"device_ms": 0.0, "events": 0})
+        acc["device_ms"] += ev.time_range.elapsed_us() / 1e3
+        acc["events"] += 1
     return {
+        "by_class": by_class,
         "spans": spans,
         "kernels": kernels,
         "pass_host_ms": wall_us / 1e3,
@@ -1393,15 +1442,18 @@ def run_serve(rec, queries, r, direct):
     return launches, summary, shapes
 
 
-def check_serve_shapes(dev, pts, queries, r, shapes, launches, label="serve"):
-    """Phase 5 (b) and phase 6 (d): both read-path kernels at every call
-    shape a run gave them (`topk_l2.LAUNCH_SHAPES`, read when the run
-    ended) against their plain versions on the same inputs, bitwise —
-    leaf_topk on random candidates at a dispatch's (R, C, D, k',
-    storage), topk_l2 on the main path's points and queries at its
-    (Q, N) — with kernel, plain and library times and the bound. These
-    launches come after the run's counts were read. Returns the
-    per-shape readings of each kernel."""
+def check_serve_shapes(dev, pts, queries, r, shapes, launches, label="serve",
+                       required=("leaf_topk", "topk_l2")):
+    """Phase 5 (b), phase 6 (d) and phase 7 (d): both read-path kernels
+    at every call shape a run gave them (`topk_l2.LAUNCH_SHAPES`, read
+    when the run ended) against their plain versions on the same inputs,
+    bitwise — leaf_topk on random candidates at a dispatch's (R, C, D,
+    k', storage), topk_l2 on the run's points and queries (`pts`,
+    `queries`, whose D must be the call's) at its (Q, N) — with kernel,
+    plain and library times and the bound. These
+    launches come after the run's counts were read; each kernel of
+    `required` must have been launched by the run. Returns the per-shape
+    readings of each kernel."""
     gen = torch.Generator(device=dev).manual_seed(2)
     out = {"leaf_topk": [], "topk_l2": []}
     for key, n_launch in sorted(shapes.items()):
@@ -1430,10 +1482,324 @@ def check_serve_shapes(dev, pts, queries, r, shapes, launches, label="serve"):
             out["topk_l2"].append({"k": k, "launches": n_launch, **v})
     for name, rows in out.items():
         checked = sum(row["launches"] for row in rows)
-        if checked != launches[name] or not rows:
+        if checked != launches[name] or (not rows and name in required):
             raise AssertionError(f"{name}: {launches[name]} {label} launches, "
                                  f"{checked} of them at checked shapes")
     return out
+
+
+# -- phase 7: the kNN-LM serving path --------------------------------------------
+KNNLM_ARCH = "qwen2-0.5b"
+KNNLM_PARAMS = 494_032_768       # the reference's param_count of qwen2-0.5b
+KNNLM_DIM = 32                   # projected keys (examples/knnlm_serve.py)
+KNNLM_STORE = (64, 4, 1024)      # datastore: batches x sequences x tokens
+KNNLM_GEN = (4, 32, 16)          # batch, prompt, new tokens (the launcher's)
+KNNLM_LONG = 2048                # prefill length of (a)'s decode identity
+KNNLM_K = 8
+# decode steps that look up, mix and add: each lookup takes tens of
+# seconds on the card at D = 32 (PERF.md §5), so 3 of the reference
+# example's steps, not 16
+KNNLM_STEPS = 3
+# the reference's tolerance for prefill + decode == forward
+# (tests/test_archs_smoke.py); also used for card against CPU, where the
+# bf16 products sum in another order on each device
+MODEL_TOL = dict(rtol=0.1, atol=0.15)
+# device events of a decode step: cuBLAS's and CUTLASS's products, the rest
+DECODE_CLASSES = {"matmul": ("gemm", "gemv", "cutlass", "xmma", "nvjet", "Kernel2")}
+
+
+def _close(got, want, what):
+    """`got` within MODEL_TOL of `want` (tensors); the largest |error|."""
+    g, w = got.float().cpu().numpy(), want.float().cpu().numpy()
+    np.testing.assert_allclose(g, w, err_msg=what, **MODEL_TOL)
+    return float(np.abs(g - w).max())
+
+
+def _live_sq(idx, q, dev):
+    """Squared distances of one query to every live point of a
+    single-device index, by gid, in the index's own arithmetic (segments
+    by the difference form, the delta arena by the expansion form)."""
+    from repro_torch.kernels import topk_l2 as tk
+
+    seg_parts, arenas = _live_parts(idx)
+    qt = torch.from_numpy(q[None].astype(np.float32)).to(dev)
+    out = {}
+    for pts, gids in seg_parts:
+        p = torch.from_numpy(np.asarray(pts, np.float32)).to(dev)
+        sq = tk.leaf_sq(qt, p[None])[0].cpu().numpy()
+        out.update(zip(np.asarray(gids).tolist(), sq.tolist()))
+    for p, g in arenas:
+        sq = tk.expansion_sq(qt, p)[0].cpu().numpy()
+        gl = g.cpu().numpy()
+        out.update((int(a), b) for a, b in zip(gl, sq) if a >= 0)
+    return out
+
+
+def cs_span(name: str) -> float:
+    """Host seconds under one span since the registry's last reset."""
+    return span_sums((name,))[name]
+
+
+def check_lookup(store, queries, nv, nd, ok, k, r, dev, what, evicted=()):
+    """A Datastore lookup's (values, distances, valid) against a brute
+    scan of the live set: the same valid pattern and distances, and the
+    referent's values. The keys hold exact duplicates (every sequence
+    that starts with the same tokens gives the same states), whose equal
+    squared distances may be ordered either way: where a value differs,
+    the referent's neighbour must share its squared distance with other
+    live states, one of which holds the lookup's value. No gid of
+    `evicted` may be the referent's. Returns (largest distance error,
+    rows settled by ties)."""
+    bd, bg = brute_referent(store.index, queries, k, r, dev)
+    fin = np.isfinite(bd)
+    if not (np.array_equal(fin, ok) and np.array_equal(fin, np.isfinite(nd))):
+        raise AssertionError(f"{what}: valid pattern differs from the brute referent")
+    derr = float(np.abs(nd[fin] - bd[fin]).max()) if fin.any() else 0.0
+    if fin.any() and derr > 1e-6 * float(np.abs(bd[fin]).max()):
+        raise AssertionError(f"{what}: distances differ from the referent by {derr}")
+    if np.isin(bg, np.asarray(evicted, np.int64)).any():
+        raise AssertionError(f"{what}: the referent holds an evicted state")
+    values = store.values
+    want = np.where(fin, values[np.clip(bg, 0, None)], 0)
+    tied = 0
+    for row in np.nonzero((want != nv).any(1))[0]:
+        sq = _live_sq(store.index, queries[row], dev)
+        for j in np.nonzero(want[row] != nv[row])[0]:
+            group = [g for g, v in sq.items() if v == sq[int(bg[row, j])]]
+            if len(group) < 2 or nv[row, j] not in values[group]:
+                raise AssertionError(
+                    f"{what}: row {row} differs from the brute referent beyond "
+                    f"ties: values {nv[row]} vs {want[row]}")
+        tied += 1
+    return derr, tied
+
+
+def knnlm_keys(model, cfg, data_cfg, batches, proj):
+    """The datastore's (keys, values): each batch's forward logits (bf16,
+    B x S x vocab) projected to `proj`'s width one sequence at a time in
+    f32 (never the whole batch's logits in f32), and the next tokens."""
+    from repro_torch.data import tokens as data_lib
+    from repro_torch.models import model as M
+
+    keys, vals = [], []
+    for step in range(batches):
+        b = data_lib.batch_at(data_cfg, step)
+        logits, _ = M.forward(model, torch.from_numpy(b["inputs"]))
+        keys += [seq.float() @ proj for seq in logits]
+        vals.append(b["labels"].reshape(-1))
+        del logits
+    return torch.cat(keys).cpu().numpy(), np.concatenate(vals)
+
+
+def check_knnlm_leaf(dev):
+    """leaf_topk at D = 32 at the shape the fused traversal gives it on
+    this store when a frontier fills the cap: R = 4 and 16 lanes (a
+    decode step's queries, the eviction lookup's class), C = 64 leaves x
+    64 slots, k' = k + 8 — bf16 storage and the f32 fallback — against
+    the plain version, bitwise, with times and bounds. (c)'s lookups
+    overflow the cap and take the classic loop instead (PERF.md §5)."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    out = []
+    for rows in (4, 16):
+        for dtype in ("bfloat16", "float32"):
+            v = _leaf_case(dev, gen, rows, 64 * 64, KNNLM_DIM, KNNLM_K + 8,
+                           dtype, reps=10)
+            log(f"knnlm kernel leaf_topk[{dtype}] R={rows} C={64 * 64} "
+                f"D={KNNLM_DIM} k'={KNNLM_K + 8}: kernel_ms={v['ms']:.5f} "
+                f"plain_ms={v['plain_ms']:.4f} bound_ms={v['bound_ms']:.6f}; "
+                f"outputs bitwise equal to the plain version")
+            out.append({"r": rows, "c": 64 * 64, "d": KNNLM_DIM,
+                        "k": KNNLM_K + 8, "dtype": dtype, **v})
+    return out
+
+
+def run_knnlm(dev):
+    """Phase 7: qwen2-0.5b at full width with random weights, its
+    generation engine and retrieval over the port's Datastore. The
+    launcher runs first, outside the count; the launch counts are set to
+    0 before (a) and read after (c)."""
+    from repro_torch import configs, obs
+    from repro_torch.data import tokens as data_lib
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import topk_l2 as tk
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.retrieval import Datastore, knn_interpolate
+
+    out = {}
+    t0 = time.perf_counter()
+    served = launch_serve.main(["--arch", KNNLM_ARCH, "--retrieval",
+                                "--device", str(dev)])
+    torch.cuda.empty_cache()
+    out["launcher_s"] = time.perf_counter() - t0
+    out["launcher_tokens_per_s"] = (served["tokens"].size
+                                    / served["seconds"])
+    log(f"knnlm launcher: `python -m repro_torch.launch.serve --arch "
+        f"{KNNLM_ARCH} --retrieval` ran in {out['launcher_s']:.3f} s")
+
+    ops.reset_launch_counts()
+    # (a) the model, and parity
+    cfg = configs.get(KNNLM_ARCH)
+    t0 = time.perf_counter()
+    model = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    if not n_params == M.param_count(cfg) == KNNLM_PARAMS:
+        raise AssertionError(f"{n_params} parameters, want {KNNLM_PARAMS}")
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    B, S, V = KNNLM_STORE[1], KNNLM_STORE[2], cfg.vocab
+    data_cfg = data_lib.DataConfig(vocab=V, seq=S, global_batch=B, seed=0)
+    cpu_model = M.Model(cfg, "cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    x64 = torch.from_numpy(data_lib.batch_at(data_cfg, 98)["inputs"][:1, :64])
+    card, _ = M.forward(model, x64)
+    t0 = time.perf_counter()
+    cpu, _ = M.forward(cpu_model, x64)
+    out["cpu_forward64_s"] = time.perf_counter() - t0
+    out["cpu_err"] = _close(card, cpu, "64-token logits, card vs CPU")
+    out["cpu_argmax_agree"] = float(
+        (card.argmax(-1).cpu() == cpu.argmax(-1)).float().mean())
+    del cpu_model, cpu, card
+    long_cfg = data_lib.DataConfig(vocab=V, seq=KNNLM_LONG + 3, global_batch=1,
+                                   seed=0)
+    seq = torch.from_numpy(data_lib.batch_at(long_cfg, 97)["inputs"]).to(dev)
+    full, _ = M.forward(model, seq)
+    logits, cache = M.prefill(model, seq[:, :KNNLM_LONG], KNNLM_LONG + 3)
+    errs = [_close(logits[:, -1], full[:, KNNLM_LONG - 1], "prefill vs forward")]
+    for i in range(3):
+        pos = KNNLM_LONG + i
+        logits, cache = M.decode_step(model, cache, seq[:, pos:pos + 1], pos)
+        errs.append(_close(logits[:, -1], full[:, pos], f"decode {i} vs forward"))
+    out["decode_identity_err"] = max(errs)
+    del full, logits, cache
+    torch.cuda.empty_cache()
+    log(f"knnlm(a): {KNNLM_ARCH} on the card: {n_params:,} parameters "
+        f"({weight_bytes / 1e9:.3f} GB of weights), init {out['init_s']:.3f} s; "
+        f"64-token logits card vs CPU max |err| {out['cpu_err']:.5f}, argmax "
+        f"agree {out['cpu_argmax_agree']:.4f}; prefill({KNNLM_LONG}) + 3 decode "
+        f"steps vs forward({KNNLM_LONG + 3}) max |err| "
+        f"{out['decode_identity_err']:.5f} (tolerance {MODEL_TOL})")
+
+    # (b) generation
+    Bg, Sg, new = KNNLM_GEN
+    eng = Engine(cfg, model, cache_len=Sg + new, seed=0, device=dev)
+    prompt = data_lib.batch_at(data_cfg, 99)["inputs"][:Bg, :Sg]
+    g1, _ = eng.generate(prompt, new)
+    cold = dict(eng.last_timing)
+    g2, _ = eng.generate(prompt, new)
+    warm = dict(eng.last_timing)
+    if not np.array_equal(g1, g2):
+        raise AssertionError("greedy generation differs between two runs")
+    s1, _ = eng.generate(prompt, new, temperature=1.0)
+    s2, _ = eng.generate(prompt, new, temperature=1.0)
+    if np.array_equal(s1, s2):
+        raise AssertionError("two sampled requests drew the same tokens")
+    p1, _ = eng.generate(prompt, new, temperature=1.0,
+                         generator=torch.Generator(device=dev).manual_seed(7))
+    p2, _ = eng.generate(prompt, new, temperature=1.0,
+                         generator=torch.Generator(device=dev).manual_seed(7))
+    if not np.array_equal(p1, p2):
+        raise AssertionError("an explicit generator did not reproduce its draw")
+    # one decode step (batch 4) under the profiler: its device events by
+    # class, the device's busy time and idle share
+    logits, cache = M.prefill(model, torch.from_numpy(prompt).to(dev), Sg + new)
+    tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    M.decode_step(model, cache, tok, Sg)
+    split = profile_pass(lambda: M.decode_step(model, cache, tok, Sg + 1),
+                         classes=DECODE_CLASSES)
+    out["decode_profile"] = {key: split[key] for key in (
+        "by_class", "pass_host_ms", "device_busy_ms", "device_idle_share",
+        "device_events")}
+    del logits, cache
+    out["prefill_ms"] = 1e3 * warm["prefill_s"]
+    out["decode_ms_per_token"] = 1e3 * warm["decode_s"] / new
+    out["decode_tokens_per_s"] = Bg * new / warm["decode_s"]
+    out["tokens_per_s"] = Bg * new / (warm["prefill_s"] + warm["decode_s"])
+    out["cold_prefill_ms"] = 1e3 * cold["prefill_s"]
+    out["cold_decode_ms_per_token"] = 1e3 * cold["decode_s"] / new
+    log(f"knnlm(b): Engine.generate batch {Bg}, prompt {Sg}, {new} new tokens: "
+        f"prefill {out['prefill_ms']:.3f} ms, decode "
+        f"{out['decode_ms_per_token']:.3f} ms/token ({out['decode_tokens_per_s']:.1f} "
+        f"tokens/s), {out['tokens_per_s']:.1f} tokens/s end to end (first call: "
+        f"prefill {out['cold_prefill_ms']:.3f} ms, decode "
+        f"{out['cold_decode_ms_per_token']:.3f} ms/token); greedy x2 equal, "
+        f"fresh samples differ, a seeded generator reproduces; one decode "
+        f"step profiled: " + json.dumps(out["decode_profile"]))
+
+    # (c) retrieval
+    proj = torch.from_numpy((np.random.default_rng(0).standard_normal(
+        (V, KNNLM_DIM)) / np.sqrt(V)).astype(np.float32)).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    keys, vals = knnlm_keys(model, cfg, data_cfg, KNNLM_STORE[0], proj)
+    out["states_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    store = Datastore.from_pairs(keys, vals, leaf_size=64, delta_capacity=256,
+                                 device=dev)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    r = 0.6 * float(np.linalg.norm(keys.std(0)))
+    log(f"knnlm(c): {len(keys):,} states ({KNNLM_STORE[0]} batches of "
+        f"{B} x {S}) projected to {KNNLM_DIM}-d in {out['states_s']:.3f} s; "
+        f"Datastore.from_pairs(leaf_size=64, delta_capacity=256) built in "
+        f"{out['build_s']:.3f} s; r = {r:.5f}")
+    _, hidden = eng.generate(prompt, KNNLM_STEPS, capture_hidden=True)
+    proj_np = proj.cpu().numpy()
+    obs.REGISTRY.reset()
+    lookup_s, tied, derr, found = [], 0, 0.0, 0
+    added, qs = [], []
+    for i, states in enumerate(hidden):
+        q = (states @ proj_np).astype(np.float32)
+        t0 = time.perf_counter()
+        nv, nd, ok = store.lookup(q, KNNLM_K, r)
+        lookup_s.append(time.perf_counter() - t0)
+        e, t = check_lookup(store, q, nv, nd, ok, KNNLM_K, r, dev,
+                            f"knnlm lookup {i}")
+        derr, tied = max(derr, e), tied + t
+        lm = np.exp(states - states.max(-1, keepdims=True))
+        lm /= lm.sum(-1, keepdims=True)
+        mixed = knn_interpolate(lm, nv, nd, ok, lam=0.3)
+        if not np.allclose(mixed.sum(-1), 1.0, atol=1e-5):
+            raise AssertionError(f"knnlm step {i}: mixed rows do not sum to 1")
+        found += int(ok.sum())
+        added.append(store.add(q, mixed.argmax(-1)))
+        qs.append(q)
+    grown = store.n_keys
+    n_evicted = store.delete(np.concatenate(added))
+    qs = np.concatenate(qs)
+    t0 = time.perf_counter()
+    nv, nd, ok = store.lookup(qs, KNNLM_K, r)
+    evict_s = time.perf_counter() - t0
+    e, t = check_lookup(store, qs, nv, nd, ok, KNNLM_K, r, dev, "knnlm evicted",
+                        evicted=np.concatenate(added))
+    derr, tied = max(derr, e), tied + t
+    launches = ops.launch_counts()
+    shapes = dict(tk.LAUNCH_SHAPES)
+    counters = obs.snapshot()["counters"]
+    out.update(lookups=len(hidden), lookup_queries=len(hidden) * Bg,
+               lookup_s=lookup_s, lookups_per_s=len(hidden) / sum(lookup_s),
+               lookup_queries_per_s=len(hidden) * Bg / sum(lookup_s),
+               evicted_lookup_s=evict_s, in_range=found, grown=grown,
+               evicted=n_evicted, tied_rows=tied, max_dist_err=derr, r=r,
+               fused={key: v for key, v in counters.items()
+                      if key.startswith("engine.fused_traversal")},
+               phase1_s=cs_span("search.phase1"),
+               dispatch_s=cs_span("engine.dispatch"),
+               launches={k: v for k, v in launches.items() if v},
+               shapes=[list(k) + [v] for k, v in sorted(shapes.items())])
+    log(f"knnlm(c): {len(hidden)} decode steps x {Bg} queries, k = {KNNLM_K}: "
+        f"lookups {[round(x, 3) for x in lookup_s]} s ({out['lookups_per_s']:.4f} "
+        f"lookups/s, {out['lookup_queries_per_s']:.4f} queries/s), {found} "
+        f"in-range neighbours, mixed rows sum to 1; memory {len(keys)} -> "
+        f"{grown} -> {store.n_keys} states after evicting {n_evicted} (lookup "
+        f"of all {len(qs)} queries {evict_s:.3f} s); every lookup == the brute "
+        f"referent ({tied} rows settled by exact ties), max |distance err| "
+        f"{derr:.3g}; engine dispatches {out['fused']}, host s in dispatch "
+        f"{out['dispatch_s']:.3f} / phase 1 {out['phase1_s']:.3f}; launches "
+        f"{out['launches']}, by call shape {out['shapes']}")
+    return launches, shapes, out, keys, qs, r, store
 
 
 def main_data():
@@ -1497,6 +1863,19 @@ def main() -> int:
     dist_checked = check_serve_shapes(dev, pts, queries, r, dist_shapes,
                                       dist_launches, label="distributed")
     lap("distributed")
+    knn_launches, knn_shapes, knn, keys, knn_q, knn_r, store = run_knnlm(dev)
+    del store
+    torch.cuda.empty_cache()
+    # the arena held the decode steps' states (the queries) ahead of the
+    # store's keys
+    knn_checked = check_serve_shapes(dev, np.concatenate([knn_q, keys]), knn_q,
+                                     knn_r, knn_shapes, knn_launches,
+                                     label="knnlm", required=("topk_l2",))
+    knn_leaf = check_knnlm_leaf(dev)
+    del keys
+    log("knnlm: summary " + json.dumps(
+        {k: v for k, v in knn.items() if k not in ("shapes",)}))
+    lap("knnlm")
     log("phase seconds " + json.dumps(seconds))
 
     bf = leaf_variants["bfloat16"]
@@ -1511,7 +1890,10 @@ def main() -> int:
                          "serve": {"launches": serve_launches["leaf_topk"],
                                    "shapes": served["leaf_topk"]},
                          "distribution": {"launches": dist_launches["leaf_topk"],
-                                          "shapes": dist_checked["leaf_topk"]}},
+                                          "shapes": dist_checked["leaf_topk"]},
+                         "knnlm": {"launches": knn_launches["leaf_topk"],
+                                   "shapes": knn_checked["leaf_topk"],
+                                   "d32_frontier_cap": knn_leaf}},
         },
         {
             # the final pass's shape, Q = 5,300, as in earlier runs; the
@@ -1530,7 +1912,9 @@ def main() -> int:
                 "shapes": served["topk_l2"]}, "distribution": {
                 "launches": dist_launches["topk_l2"],
                 "launches_by_q": dist["topk_l2_launches_by_q"],
-                "shapes": dist_checked["topk_l2"]}},
+                "shapes": dist_checked["topk_l2"]}, "knnlm": {
+                "launches": knn_launches["topk_l2"],
+                "shapes": knn_checked["topk_l2"]}},
         },
     ]
     for name, src, replaces, res, main_key in (

@@ -5,7 +5,8 @@ numpy arrays — both builders return numpy) and returns the port's own
 `Tree`, so tests can run the reference and the port on the SAME tree
 and compare paper-metric counts exactly. No import of the reference is
 needed: the fields are read by name. `sharded_index_from_reference`
-does the same for the reference's `distributed.ShardedIndex`.
+does the same for the reference's `distributed.ShardedIndex`, and
+`model_from_reference` for the reference's model parameters.
 """
 from __future__ import annotations
 
@@ -55,3 +56,63 @@ def sharded_index_from_reference(index, device="cuda") -> _distributed.ShardedIn
         np.asarray(index.shard_offsets, np.int64),
         [devs[s % len(devs)] for s in range(len(trees))],
     )
+
+
+def _layer_values(cfg, groups):
+    """The reference's per-group value trees as one tree per layer, in
+    layer order: a group of `reps` > 1 holds its unit's leaves stacked on
+    a leading axis, which is taken apart here."""
+    out = []
+    for (unit, reps), group in zip(cfg.scan_groups(), groups):
+        for r in range(reps):
+            for i in range(len(unit)):
+                block = group[f"b{i}"]
+                if reps > 1:
+                    block = _take(block, r)
+                out.append(block)
+    return out
+
+
+def _take(tree, r):
+    if isinstance(tree, dict):
+        return {k: _take(v, r) for k, v in tree.items()}
+    return np.asarray(tree)[r]
+
+
+def model_from_reference(cfg, values, device="cpu"):
+    """The port's model of `cfg` (a port `ModelConfig`) holding the
+    numbers of the reference's value tree `values` (the first half of
+    `split_params(init_params(...))`, numpy or device arrays), on
+    `device`. The reference's f32 weights of bf16 products are stored
+    rounded to bf16, as the reference rounds them at every use; norms
+    stay f32. Merged head axes: wq (d, H, hd) -> (d, H·hd), wo (H, hd, d)
+    -> (H·hd, d), biases (H, hd) -> (H·hd,)."""
+    import torch
+
+    from .models import model as M
+
+    dev = M.resolve_device(device)
+    model = M.Model(cfg, device=dev)
+
+    def put(param, value):
+        v = torch.from_numpy(np.asarray(value, np.float32).copy())
+        param.data.copy_(v.reshape(param.shape).to(param.dtype))
+
+    layers = _layer_values(cfg, values["groups"])
+    if len(layers) != len(model.layers):
+        raise ValueError(f"{len(layers)} reference layers, {len(model.layers)} "
+                         f"in the port's {cfg.name}")
+    with torch.no_grad():
+        for block, ref in zip(model.layers, layers):
+            put(block.norm1, ref["norm1"])
+            for name, param in block.mixer.named_parameters():
+                put(param, ref["mixer"][name])
+            if "ffn" in ref:
+                put(block.norm2, ref["norm2"])
+                for name, param in block.ffn.items():
+                    put(param, ref["ffn"][name])
+        put(model.final_norm, values["final_norm"])
+        for name in ("embed", "unembed"):
+            if hasattr(model, name):
+                put(getattr(model, name), values[name])
+    return model

@@ -1,0 +1,121 @@
+"""Shared modeling primitives (a port of the reference's `models/layers.py`):
+RMSNorm, RoPE, dense products in the compute type, the SwiGLU / GELU
+MLP, the init helpers and the cross entropy.
+
+Numbers follow the reference operation by operation:
+
+  * `matmul`: bf16 operands, f32 accumulation, one rounding to bf16. A
+    bf16 x bf16 `torch.matmul` does exactly that on the CPU (it sums in
+    f32 and rounds once; only the order of the sum differs from XLA's).
+    On the card cuBLAS sums in f32 too, but PyTorch's default
+    `torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction`
+    (True) lets it reduce split-K partial sums in bf16; the port leaves
+    that flag as the caller set it, and the card tests hold the card
+    against the CPU within their stated tolerance.
+  * products whose result the reference keeps in f32 (attention scores,
+    probabilities times values) take f32 operands holding the bf16
+    values: every product is exact, the sum is f32.
+  * `rms_norm` and `apply_rope` compute in f32 and round once.
+
+The reference keeps f32 parameters and casts them to bf16 inside every
+product, gather and bias add; the port casts once when the weights are
+made or loaded (`models/model.py`), which gives the same numbers. Norm
+weights stay f32.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+COMPUTE_DTYPE = torch.bfloat16
+PARAM_DTYPE = torch.float32
+
+
+# --------------------------------------------------------------------- #
+def normal(shape, generator: torch.Generator, device, std: float = 0.02,
+           dtype=COMPUTE_DTYPE) -> torch.Tensor:
+    """N(0, std²) drawn in f32 from `generator`, stored as `dtype`."""
+    x = torch.randn(shape, generator=generator, device=device,
+                    dtype=PARAM_DTYPE)
+    return (x * std).to(dtype)
+
+
+def fanin(shape, generator: torch.Generator, device, fan_axis: int = 0,
+          dtype=COMPUTE_DTYPE) -> torch.Tensor:
+    """N(0, 1/fan) with fan = shape[fan_axis], as the reference draws it."""
+    return normal(shape, generator, device, std=shape[fan_axis] ** -0.5,
+                  dtype=dtype)
+
+
+# --------------------------------------------------------------------- #
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * w.float()
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------- #
+def rope_freqs(hd: int, theta: float, device=None) -> torch.Tensor:
+    ar = torch.arange(0, hd, 2, dtype=torch.float32, device=device)
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                        device=device), ar / hd)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd) rotated by split halves; positions: (..., S)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)  # (hd/2,)
+    ang = positions[..., None].float() * freqs  # (..., S, hd/2)
+    cos = torch.cos(ang)[..., None, :]  # (..., S, 1, hd/2)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------- #
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., K) @ w (K, N) in the compute type with f32 sums (see the
+    module docstring), rounded once to bf16."""
+    return torch.matmul(x.to(COMPUTE_DTYPE), w.to(COMPUTE_DTYPE))
+
+
+def init_mlp(d: int, f: int, gated: bool, generator, device) -> dict:
+    """The reference's `init_mlp` shapes and draws: w_up (d, f) and w_down
+    (f, d), plus w_gate (d, f) when gated; returned in the reference's key
+    order (gate, up, down)."""
+    p = {}
+    if gated:
+        p["w_gate"] = fanin((d, f), generator, device)
+    p["w_up"] = fanin((d, f), generator, device)
+    p["w_down"] = fanin((f, d), generator, device)
+    return p
+
+
+def mlp(params, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU FFN (or the GELU MLP, tanh form, when ungated). x: (B, S, d);
+    `params` maps "w_up", "w_down" and optionally "w_gate" to tensors."""
+    u = matmul(x, params["w_up"])
+    if "w_gate" in params:
+        g = matmul(x, params["w_gate"])
+        h = F.silu(g.float()).to(u.dtype) * u
+    else:
+        h = F.gelu(u.float(), approximate="tanh").to(u.dtype)
+    return matmul(h, params["w_down"])
+
+
+def cross_entropy(
+    logits: torch.Tensor, labels: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stable CE in f32. logits: (B, S, V); labels: (B, S) int.
+    Returns (mean, per-token nll)."""
+    lf = logits.float()
+    m = lf.amax(-1, keepdim=True)
+    lse = torch.log(torch.exp(lf - m).sum(-1)) + m[..., 0]
+    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    nll = lse - gold
+    return nll.mean(), nll

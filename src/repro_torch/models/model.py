@@ -1,0 +1,276 @@
+"""Model assembly: config -> parameters / forward / prefill / decode.
+
+A port of the reference's `models/model.py` for the configs whose layer
+plan is ("attn", "dense") only: qwen2-0.5b, qwen2-72b, granite-20b,
+h2o-danube-1.8b, and musicgen-medium and llava-next-34b through the
+embeddings frontend. The reference stacks a scan group's layers on a
+leading axis and scans them; the port holds a `ModuleList` of layers in
+the same order (`ModelConfig.scan_groups`), and a per-layer list of
+caches. The other mixers (MLA, RG-LRU, mLSTM / sLSTM) and the MoE FFN
+raise `NotImplementedError` when a model is made.
+
+Every entry point runs on the device its model lives on. `init_params`
+puts a model on "cuda" unless the caller asks for the CPU, and raises
+where there is no card.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Tuple, Union
+
+import torch
+from torch import nn
+
+from . import attention
+from .config import ModelConfig
+from .layers import COMPUTE_DTYPE, PARAM_DTYPE, init_mlp, matmul, mlp, normal, rms_norm
+
+# mixer registry: kind -> (init, apply, decode, cache_shape, prefill)
+MIXERS = {
+    "attn": (
+        attention.init_attn,
+        attention.attn,
+        attention.attn_decode,
+        attention.attn_cache_shape,
+        attention.attn_prefill,
+    ),
+}
+
+# the slice of the port that brings each missing layer kind
+_LATER = {
+    "mla": "the MoE and MLA slice (deepseek-v2-lite)",
+    "moe": "the MoE and MLA slice (deepseek-v2-lite, phi3.5-moe)",
+    "rglru": "the recurrent slice (recurrentgemma)",
+    "rglru_noffn": "the recurrent slice (recurrentgemma)",
+    "mlstm": "the xLSTM slice (xlstm-125m)",
+    "slstm": "the xLSTM slice (xlstm-125m)",
+}
+
+
+def resolve_device(device) -> torch.device:
+    """`device` as a torch device, "cuda" with the current card's index;
+    a CUDA device where there is no card raises (nothing falls back to
+    the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: the port's model runs on the card; pass "
+                "device='cpu' to run it on the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    for mixer, ffn in cfg.layer_plan():
+        for kind in (mixer, ffn):
+            if kind in _LATER:
+                raise NotImplementedError(
+                    f"{cfg.name}: layer kind {kind!r} is not ported yet; it "
+                    f"comes with {_LATER[kind]}")
+
+
+# ===================================================================== #
+# parameters
+# ===================================================================== #
+def _vector(d: int, fill: float, device) -> nn.Parameter:
+    t = torch.full((d,), fill, dtype=PARAM_DTYPE, device=device)
+    return nn.Parameter(t, requires_grad=False)
+
+
+def init_ffn(cfg: ModelConfig, device, generator=None) -> nn.ParameterDict:
+    """The dense FFN's weights by the reference's names ("w_gate" when
+    gated, "w_up", "w_down"), drawn as `init_mlp` draws them, or empty."""
+    d, f = cfg.d_model, cfg.d_ff
+    if generator is not None:
+        ws = init_mlp(d, f, cfg.mlp_gated, generator, device)
+    else:
+        names = (("w_gate",) if cfg.mlp_gated else ()) + ("w_up", "w_down")
+        ws = {n: torch.empty((f, d) if n == "w_down" else (d, f),
+                             dtype=COMPUTE_DTYPE, device=device)
+              for n in names}
+    return nn.ParameterDict(
+        {n: nn.Parameter(t, requires_grad=False) for n, t in ws.items()})
+
+
+class Block(nn.Module):
+    """One (mixer, ffn) layer: pre-norm mixer and pre-norm FFN, each with
+    a residual add."""
+
+    def __init__(self, cfg: ModelConfig, kind: Tuple[str, str], device,
+                 generator=None):
+        super().__init__()
+        mixer, ffn = kind
+        self.kind = kind
+        self.norm1 = _vector(cfg.d_model, 1.0, device)
+        self.mixer = MIXERS[mixer][0](cfg, device, generator)
+        if ffn == "dense":
+            self.norm2 = _vector(cfg.d_model, 1.0, device)
+            self.ffn = init_ffn(cfg, device, generator)
+
+
+class Model(nn.Module):
+    """The decoder stack's parameters, in the reference's layer order.
+    bf16 products' weights are stored bf16 (the reference casts its f32
+    parameters to bf16 at every use: the same numbers); norms stay f32."""
+
+    def __init__(self, cfg: ModelConfig, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        check_supported(cfg)
+        self.cfg = cfg
+        dev = torch.device(device)
+
+        def table(shape, std):
+            if generator is None:
+                t = torch.empty(shape, dtype=COMPUTE_DTYPE, device=dev)
+            else:
+                t = normal(shape, generator, dev, std=std)
+            return nn.Parameter(t, requires_grad=False)
+
+        d, V = cfg.d_model, cfg.vocab
+        if cfg.frontend == "tokens":
+            self.embed = table((V, d), 0.02)
+        self.layers = nn.ModuleList(
+            Block(cfg, kind, dev, generator) for kind in cfg.layer_plan())
+        self.final_norm = _vector(d, 1.0, dev)
+        if cfg.frontend != "tokens" or not cfg.tied_embeddings:
+            self.unembed = table((d, V), d ** -0.5)
+
+    @property
+    def device(self) -> torch.device:
+        return self.final_norm.device
+
+
+def init_params(cfg: ModelConfig, seed: Union[int, torch.Generator] = 0,
+                device="cuda") -> Model:
+    """A model of `cfg` with random weights on `device`, drawn from
+    `seed` (an int, or a `torch.Generator` on that device) with the
+    reference's distributions and shapes (not its numbers: the reference
+    draws from `jax.random`)."""
+    dev = resolve_device(device)
+    gen = seed
+    if not isinstance(seed, torch.Generator):
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
+    with torch.no_grad():
+        return Model(cfg, dev, gen)
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """The parameter count, from shapes on the meta device (nothing is
+    allocated); equal to the reference's `param_count`."""
+    model = Model(cfg, device="meta")
+    return int(sum(p.numel() for p in model.parameters()))
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Parameters used per token: all of them in a dense config."""
+    return param_count(cfg)
+
+
+# ===================================================================== #
+# apply
+# ===================================================================== #
+def _apply_block(block: Block, h, positions, cfg: ModelConfig, cache=None,
+                 pos=None, cache_len: int = 0):
+    """One block. Returns (h, new_cache).
+
+    cache is None, cache_len=0   -> plain forward
+    cache is None, cache_len>0   -> prefill (forward + cache emission)
+    cache is a dict              -> single-token decode
+    """
+    mixer, ffn = block.kind
+    _, apply_fn, decode_fn, _, prefill_fn = MIXERS[mixer]
+    hin = rms_norm(h, block.norm1, cfg.norm_eps)
+    new_cache = None
+    if cache is not None:
+        y, new_cache = decode_fn(block.mixer, hin, cache, pos, cfg)
+    elif cache_len:
+        y, new_cache = prefill_fn(block.mixer, hin, positions, cfg, cache_len)
+    else:
+        y = apply_fn(block.mixer, hin, positions, cfg)
+    h = h + y
+    if ffn == "dense":
+        h = h + mlp(block.ffn, rms_norm(h, block.norm2, cfg.norm_eps))
+    return h, new_cache
+
+
+def _embed_in(model: Model, inputs):
+    if model.cfg.frontend == "tokens":
+        return model.embed[inputs.to(model.device).long()]
+    return inputs.to(model.device).to(COMPUTE_DTYPE)
+
+
+def _logits_out(model: Model, h):
+    cfg = model.cfg
+    h = rms_norm(h, model.final_norm, cfg.norm_eps)
+    if cfg.frontend == "tokens" and cfg.tied_embeddings:
+        return matmul(h, model.embed.t())
+    return matmul(h, model.unembed)
+
+
+def _positions(B: int, S: int, device):
+    return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
+
+
+@torch.no_grad()
+def forward(model: Model, inputs) -> Tuple[torch.Tensor, torch.Tensor]:
+    """inputs: (B, S) int tokens or (B, S, d) embeddings. Returns
+    (logits (B, S, vocab) bf16, aux loss 0 — dense configs have none)."""
+    cfg = model.cfg
+    B, S = inputs.shape[:2]
+    positions = _positions(B, S, model.device)
+    h = _embed_in(model, inputs)
+    for block in model.layers:
+        h, _ = _apply_block(block, h, positions, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=model.device)
+    return _logits_out(model, h), aux
+
+
+# ===================================================================== #
+# serving
+# ===================================================================== #
+def cache_shapes(cfg: ModelConfig, batch: int, cache_len: int) -> List[dict]:
+    """Per layer, {name: (shape, dtype)} of its decode cache."""
+    check_supported(cfg)
+    return [MIXERS[mixer][3](cfg, batch, cache_len)
+            for mixer, _ in cfg.layer_plan()]
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
+               device="cuda") -> List[dict]:
+    dev = resolve_device(device)
+    return [{name: torch.zeros(shape, dtype=dtype, device=dev)
+             for name, (shape, dtype) in layer.items()}
+            for layer in cache_shapes(cfg, batch, cache_len)]
+
+
+@torch.no_grad()
+def decode_step(model: Model, cache: List[dict], tokens, pos: int):
+    """One decode step. tokens: (B, 1) int (or (B, 1, d) embeddings);
+    pos: the new token's position. Returns (logits (B, 1, vocab), cache);
+    the cache is updated in place."""
+    cfg = model.cfg
+    h = _embed_in(model, tokens)
+    for block, layer_cache in zip(model.layers, cache):
+        h, _ = _apply_block(block, h, None, cfg, cache=layer_cache, pos=int(pos))
+    return _logits_out(model, h), cache
+
+
+@torch.no_grad()
+def prefill(model: Model, tokens, cache_len: int):
+    """Process a full prompt, returning (logits, decode cache).
+
+    tokens: (B, S) int (or (B, S, d) embeddings). The emitted cache has
+    time capacity `cache_len` (rolling min(window, cache_len) buffers for
+    sliding-window attention) and plugs directly into decode_step at
+    pos = S."""
+    cfg = model.cfg
+    B, S = tokens.shape[:2]
+    positions = _positions(B, S, model.device)
+    h = _embed_in(model, tokens)
+    caches = []
+    for block in model.layers:
+        h, c = _apply_block(block, h, positions, cfg, cache_len=cache_len)
+        caches.append(c)
+    return _logits_out(model, h), caches

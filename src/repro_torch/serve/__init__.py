@@ -5,8 +5,10 @@
     remap epoch), and `knn_interpolate`;
   * `frontend` — `SearchFrontend`: continuous batching into pow2 batch
     classes with admission control (`block` / `reject` /
-    `shed_oldest`), deadlines, graceful drain, and `RetryingClient`.
-
-The reference's `serve/engine.py` (the LM generation engine) waits for
-the port of the model stack.
+    `shed_oldest`), deadlines, graceful drain, and `RetryingClient`;
+  * `engine` — the LM generation `Engine`: prefill and batched decode
+    over the dense models of `repro_torch.models`, greedy or sampled
+    with one `torch.Generator` a request (the launcher
+    `repro_torch.launch.serve` drives it, with retrieval over the
+    Datastore).
 """

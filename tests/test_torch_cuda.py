@@ -479,3 +479,94 @@ def test_sharded_across_cards_equals_single_device(dev):
     want = ref.constrained_knn(q, 5, 2.5)
     np.testing.assert_array_equal(got.gids, want.gids)
     np.testing.assert_array_equal(got.distances, want.distances)
+
+
+# --------------------------------------------------------------------- #
+# the kNN-LM path: the read-path kernels at D = 32 (the projected keys,
+# the generic VD = 0 routes), and the model stack on the card
+# --------------------------------------------------------------------- #
+def _d32_leaf_case(sdt, rows=64, c=512, seed=21):
+    """Rows of 32-d candidates around their queries (~1.1 apart), 20%
+    dead slots, radii of 0.8-1.4: some pass the gate, some do not."""
+    rng = np.random.default_rng(seed)
+    d = 32
+    q = rng.standard_normal((rows, d)).astype(np.float32)
+    cands = torch.from_numpy(
+        (q[:, None, :] + 0.2 * rng.standard_normal((rows, c, d))).astype(np.float32))
+    cg = rng.permutation(rows * c).reshape(rows, c).astype(np.int32)
+    cg[rng.random((rows, c)) < 0.2] = -1
+    r = torch.from_numpy(rng.uniform(0.8, 1.4, rows).astype(np.float32))
+    store, scale, _ = quantize.quantize_leaves(cands, sdt)
+    cscale = None
+    if scale is not None:
+        cscale = scale[:, None].expand(rows, c).contiguous()
+    store = cands if store is None else store
+    return (torch.from_numpy(q), store, torch.from_numpy(cg),
+            tk.radius_sq_upper(r)), cscale
+
+
+@pytest.mark.parametrize("sdt", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("rows,c,k", [(64, 512, 16), (4, 64, 16), (3, 300, 40)])
+def test_leaf_kernel_d32_equals_plain(dev, sdt, rows, c, k):
+    args, cscale = _d32_leaf_case(sdt, rows, c)
+    want = _leaf_equal(dev, args, cscale, k)
+    assert (want[1] >= 0).any() and (want[1] < 0).any()
+
+
+@pytest.mark.parametrize("m,n,k", [(4, 256, 8), (64, 256, 8), (64, 4096, 10),
+                                   (5, 300, 40)])
+def test_topk_kernel_d32_equals_plain(dev, m, n, k):
+    """The delta arena of a kNN-LM datastore (256 slots, 4 queries a
+    decode step, k = 8), wider arenas, and the shared-memory list."""
+    rng = np.random.default_rng(m * n + k)
+    p = torch.from_numpy(rng.standard_normal((n, 32)).astype(np.float32))
+    q = p[torch.from_numpy(rng.integers(0, n, m))] + 0.3 * torch.from_numpy(
+        rng.standard_normal((m, 32)).astype(np.float32))
+    g = torch.arange(n, dtype=torch.int32)
+    g[::7] = -1
+    r_sq = tk.radius_sq_upper(torch.full((m,), 6.0))
+    want = _topk_equal(dev, q.contiguous(), p, g, r_sq, k)
+    assert (want[1] >= 0).any()
+
+
+def test_model_on_the_card_matches_the_cpu(dev):
+    """The reduced qwen2-0.5b, the same weights on the card and on the
+    CPU: forward logits, prefill + decode, and greedy generation's
+    per-step logits agree within rtol 0.03, atol 0.03 (bf16 products
+    summed in another order on each device; 1-2 bf16 ulps expected), and
+    the tokens agree up to each row's first close call (top-2 margin
+    under twice the row's largest difference)."""
+    import copy
+
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import Engine
+
+    cfg = configs.get("qwen2-0.5b").reduced()
+    cpu = M.init_params(cfg, 3, "cpu")
+    card = copy.deepcopy(cpu).to(dev)
+    tol = dict(rtol=0.03, atol=0.03)
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 40)).astype(np.int32))
+    want, _ = M.forward(cpu, x)
+    got, _ = M.forward(card, x.to(dev))
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().numpy(), **tol)
+    lw, cw = M.prefill(cpu, x[:, :36], 40)
+    lg, cg = M.prefill(card, x[:, :36].to(dev), 40)
+    for i in range(4):
+        np.testing.assert_allclose(lg[:, -1].float().cpu().numpy(),
+                                   lw[:, -1].float().numpy(), **tol)
+        tok = x[:, 36 + i:37 + i]
+        lw, cw = M.decode_step(cpu, cw, tok, 36 + i)
+        lg, cg = M.decode_step(card, cg, tok.to(dev), 36 + i)
+    prompt = x[:, :16].numpy()
+    tw, hw = Engine(cfg, cpu, 32, device="cpu").generate(prompt, 8, capture_hidden=True)
+    tg, hg = Engine(cfg, card, 32, device=dev).generate(prompt, 8, capture_hidden=True)
+    np.testing.assert_allclose(hg[0], hw[0], **tol)
+    for b in range(2):
+        for i in range(8):
+            top2 = np.sort(hw[i][b])[-2:]
+            if top2[1] - top2[0] <= 2 * np.abs(hg[i][b] - hw[i][b]).max():
+                break
+            assert tg[b, i] == tw[b, i]
+            np.testing.assert_allclose(hg[i][b], hw[i][b], **tol)
