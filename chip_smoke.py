@@ -139,6 +139,36 @@ Phases, in order; any failure raises and the script exits non-zero:
                    lookups overflow the fused traversal's frontier cap
                    and take the classic loop), at the shape the fused
                    path would give it.
+  8. moe     — the MoE and MLA layers, with random weights from seeded
+               generators; phase 7's model freed first. cuBLAS sums bf16
+               products in f32 in this phase (no bf16 split-K reduction),
+               as the reference's products do. The launch counts are set
+               to 0 before (a) and read after (e):
+               (a) deepseek-v2-lite-16b at its full published width and
+                   depth (27 layers: MLA throughout, a dense first FFN,
+                   26 MoE FFNs of 64 routed experts, top-6, 2 shared;
+                   15,706,484,224 parameters, 2,661,150,208 active) on the
+                   card: parameter count, weight and peak memory;
+                   `Engine.generate` at the launcher's defaults (batch 4,
+                   32-token prompts, 16 new tokens), greedy twice equal;
+                   prefill ms and decode ms per token beside their bounds
+                   (every expert's weights are read each step), tokens/s;
+                   one decode step profiled: device events by class
+                   (products, MoE dispatch, the rest), busy ms, idle share;
+               (b) its first 3 layers (the dense one and two MoE layers)
+                   on the card and, copied, on the CPU: forward and
+                   prefill of 63 tokens (one dispatch group, C = 8: tokens
+                   drop) and 3 decode steps; max |err| and argmax
+                   agreement, each MoE call's dropped count equal on both,
+                   tokens whose experts differ counted;
+               (c) prefill(2,048) + 3 decode steps against forward(2,051)
+                   at full depth, with the capacity factor n_experts /
+                   top_k so that no assignment drops (0 dropped checked);
+               (d) phi3.5-moe at full width, 4 of its 32 layers: card
+                   against CPU as in (b), and `Engine.generate`;
+               (e) the serve launcher (`--arch deepseek-v2-lite-16b
+                   --smoke --retrieval`), its launch counts and the
+                   lookup's dispatch kind.
 
 Kernel times ("ms") are CUDA-event means over back-to-back eager calls
 through the wrapper, what the port pays. For the two launch-bound
@@ -153,6 +183,7 @@ object, the card's name and power limit, and `{"ok": true, ...}`.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -513,7 +544,7 @@ def profile_pass(fn, classes=None) -> dict:
     kernel and copy intervals) and the device's idle share. `classes`
     ({class: name substrings}) also sums the device events' ms and count
     by the first class whose substring their name holds ("other" for
-    none)."""
+    none), and lists the 8 device event names that took the most time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -563,15 +594,18 @@ def profile_pass(fn, classes=None) -> dict:
             end = hi
     if not intervals or wall_us <= 0:
         raise AssertionError("the profiler saw no device work in the pass")
-    by_class = {}
+    by_class, by_name = {}, {}
     for ev in device if classes else ():
         name = next((c for c, subs in classes.items()
                      if any(sub in ev.name for sub in subs)), "other")
-        acc = by_class.setdefault(name, {"device_ms": 0.0, "events": 0})
-        acc["device_ms"] += ev.time_range.elapsed_us() / 1e3
-        acc["events"] += 1
+        for acc in (by_class.setdefault(name, {"device_ms": 0.0, "events": 0}),
+                    by_name.setdefault(ev.name[:80], {"device_ms": 0.0, "events": 0})):
+            acc["device_ms"] += ev.time_range.elapsed_us() / 1e3
+            acc["events"] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1]["device_ms"])[:8]
     return {
         "by_class": by_class,
+        "top_events": dict(top),
         "spans": spans,
         "kernels": kernels,
         "pass_host_ms": wall_us / 1e3,
@@ -1802,6 +1836,384 @@ def run_knnlm(dev):
     return launches, shapes, out, keys, qs, r, store
 
 
+# -- phase 8: the MoE and MLA layers ------------------------------------------------
+MOE_ARCH = "deepseek-v2-lite-16b"
+MOE_PARAMS = 15_706_484_224      # the reference's param_count of deepseek-v2-lite-16b
+MOE_ACTIVE = 2_661_150_208       # and its active_param_count
+PHI_ARCH = "phi3.5-moe-42b-a6.6b"
+# 4 of phi3.5-moe's 32 layers: the whole model (41,872,527,360 parameters,
+# 83.7 GB in bf16) does not fit one card
+PHI_LAYERS = 4
+MOE_CUT = 3      # (b): deepseek's dense first layer and its first two MoE layers
+# (b), (d): prompt length; an odd token count is one dispatch group, where
+# deepseek's capacity is C = 8 (phi3.5-moe's 16), so assignments drop
+MOE_SHORT = 63
+MOE_LONG = 2048  # (c): prefill length of the decode identity at full depth
+MOE_STEPS = 3    # decode steps of (b), (c), (d)
+# device events of a decode step: products, the MoE dispatch (the
+# routing's sort and cumsum, the one-hot and position scatters and
+# gathers, the buffer write, the combine's gather, the expert histogram)
+# by kernel name, everything else
+MOE_CLASSES = {**DECODE_CLASSES,
+               "moe_dispatch": ("sort", "Sort", "scan", "Scan", "scatter",
+                                "index", "Histogram")}
+
+
+def model_view(model, cfg):
+    """A model of `cfg` over `model`'s own parameter tensors (no copy):
+    `cfg` may keep only the first layers, or change a setting that holds
+    no weight (the capacity factor)."""
+    from repro_torch.models import model as M
+
+    view = M.Model(cfg, "meta")
+    sd = model.state_dict()
+    view.load_state_dict({k: sd[k] for k in view.state_dict()}, assign=True)
+    return view
+
+
+def routed(model, fn):
+    """fn() with `model`'s MoE calls traced: (fn's result, [(module name,
+    its input, the experts chosen (G, Tg·k), which of them were dropped)],
+    the tensors on the CPU)."""
+    from repro_torch.models import moe
+
+    with moe.routing_trace(model) as calls:
+        out = fn()
+    return out, [(n, x.cpu(), e.cpu(), d.cpu()) for n, x, e, d in calls]
+
+
+def moe_pass_bound(model, tokens: int) -> tuple:
+    """(bound ms, what bounds it) of one pass of `tokens` tokens (a
+    prefill of B x S, or a decode step of B): every weight read once but
+    the embedding table (one row a token); 2 operations a weight a token
+    for every product outside the routed experts (bf16 at the tensor
+    cores' rate, the f32 router's few among them), and each MoE layer's
+    expert products over all its E x G·C capacity rows, which the
+    dispatch computes whether they hold a token or not. The attention
+    scores and values are left out, so the bound stays a lower one."""
+    from repro_torch.models import moe
+
+    cfg = model.cfg
+    routed_params = sum(
+        p.numel() for m in model.modules() if isinstance(m, moe.MoE)
+        for n, p in m.named_parameters(recurse=False) if n != "router")
+    n_moe = sum(isinstance(m, moe.MoE) for m in model.modules())
+    embed = model.embed.numel() if hasattr(model, "embed") else 0
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    n_bytes = weight_bytes - embed * 2 + tokens * cfg.d_model * 2
+    ops = 2 * tokens * (sum(p.numel() for p in model.parameters())
+                        - embed - routed_params)
+    if n_moe:
+        G = moe.n_groups(cfg, tokens)
+        C = moe.capacity(cfg, tokens // G)
+        ops += n_moe * 2 * 3 * cfg.n_experts * G * C * cfg.d_model * cfg.d_expert
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_FLOP_PER_S[torch.bfloat16]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _token_routes(flat_e, dropped, k):
+    """Per token, (its experts, the experts it kept) as sorted tuples."""
+    e = flat_e.reshape(-1, k).tolist()
+    d = dropped.reshape(-1, k).tolist()
+    return [(tuple(sorted(es)), tuple(sorted(x for x, gone in zip(es, ds) if not gone)))
+            for es, ds in zip(e, d)]
+
+
+def card_vs_cpu(card, x, what) -> dict:
+    """Phase 8 (b) and (d): `card`'s weights copied to the CPU; on both,
+    forward(x[:, :MOE_SHORT]), prefill of the same tokens and MOE_STEPS
+    decode steps, every MoE call traced.
+
+    Routing is held where it is well posed, on the same input: each MoE
+    call's input on the card, routed again by the CPU's copy of the
+    layer, must choose the same experts and drop the same assignments.
+    Between the two runs the inputs differ by the rounding of bf16
+    products summed in another order, and a near-tie of the router may
+    flip a token's experts, which also moves the later tokens' slots and
+    so what drops. Such tokens are counted and printed with their logits'
+    error and the largest CPU-side probability margin a flip crossed;
+    every other token's logits, at every step, must agree within
+    MODEL_TOL. Returns the readings."""
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+
+    t0 = time.perf_counter()
+    cpu = M.Model(card.cfg, "cpu")
+    cpu.load_state_dict(card.state_dict())
+    copy_s = time.perf_counter() - t0
+    cfg, n, k = card.cfg, MOE_SHORT, card.cfg.top_k
+
+    def run(model):
+        xs = x.to(model.device)
+        out = [M.forward(model, xs[:, :n])[0]]
+        logits, cache = M.prefill(model, xs[:, :n], n + MOE_STEPS)
+        out.append(logits)
+        for i in range(MOE_STEPS):
+            logits, cache = M.decode_step(model, cache, xs[:, n + i:n + i + 1], n + i)
+            out.append(logits)
+        return [o.float().cpu()[0] for o in out]
+
+    got, got_calls = routed(card, lambda: run(card))
+    t0 = time.perf_counter()
+    want, want_calls = routed(cpu, lambda: run(cpu))
+    cpu_s = time.perf_counter() - t0
+    if [c[0] for c in got_calls] != [c[0] for c in want_calls]:
+        raise AssertionError(f"{what}: MoE calls differ, card vs CPU")
+    steps = ["forward", "prefill"] + [f"decode {i}" for i in range(MOE_STEPS)]
+    per_step = len(got_calls) // len(steps)
+    drops, same_input, flips, margin = [], [], 0, 0.0
+    moved = [set() for _ in steps]  # per step, the tokens whose routing differs
+    for i, ((name, gx, ge, gd), (_, wx, we, wd)) in enumerate(zip(got_calls, want_calls)):
+        layer = cpu.get_submodule(name)
+        _, _, fe, slot, C = moe.route(layer, gx, cfg)
+        same_input.append((int(gd.sum()), int((slot == C).sum())))
+        if not (torch.equal(fe, ge) and torch.equal(slot == C, gd)):
+            raise AssertionError(f"{what}: {name} routes the card's input "
+                                 f"differently on the CPU")
+        drops.append((int(gd.sum()), int(wd.sum())))
+        g_routes, w_routes = _token_routes(ge, gd, k), _token_routes(we, wd, k)
+        probs = None
+        for t, (g, w) in enumerate(zip(g_routes, w_routes)):
+            if g == w:
+                continue
+            moved[i // per_step].add(t)
+            if g[0] != w[0]:  # a flip: how far the CPU kept the card's pick below
+                flips += 1
+                if probs is None:
+                    probs = moe.route(layer, wx, cfg)[0].reshape(-1, cfg.n_experts)
+                a = sorted(set(g[0]) - set(w[0]))
+                b = sorted(set(w[0]) - set(g[0]))
+                margin = max(margin, float(probs[t, b].min() - probs[t, a].max()))
+    del cpu
+    errs, moved_errs, agree = {}, {}, []
+    for s, g, w, mv in zip(steps, got, want, moved):
+        keep = [t for t in range(g.shape[0]) if t not in mv]
+        errs[s] = float((g[keep] - w[keep]).abs().max()) if keep else None
+        if mv:
+            moved_errs[s] = {"tokens": len(mv), "max_abs_err":
+                             float((g[sorted(mv)] - w[sorted(mv)]).abs().max())}
+        agree.append((g.argmax(-1) == w.argmax(-1)).float().mean().item())
+    agree = float(np.mean(agree))
+    out = {"moe_calls": len(got_calls), "dropped_card": sum(d for d, _ in drops),
+           "dropped_cpu": sum(d for _, d in drops), "dropped_by_call": drops,
+           "same_input_dropped_by_call": same_input, "expert_flips": flips,
+           "flip_margin_max": margin, "max_abs_err": errs,
+           "routing_moved": moved_errs, "argmax_agree": agree,
+           "cpu_copy_s": copy_s, "cpu_s": cpu_s}
+    log(f"{what}: card vs CPU, forward / prefill of {n} tokens and {MOE_STEPS} "
+        f"decode steps: max |err| over the tokens routed alike "
+        f"{json.dumps(errs)}, argmax agree {agree:.4f} over all; "
+        f"{len(got_calls)} MoE calls; on the same input (the card's, routed "
+        f"again on the CPU) every call chose the same experts and dropped the "
+        f"same assignments (dropped, card / CPU, by call {same_input}); between "
+        f"the two runs assignments dropped card {out['dropped_card']} / CPU "
+        f"{out['dropped_cpu']} (by call {drops}), (token, call) pairs whose "
+        f"experts differ {flips}, the largest CPU-side probability margin a "
+        f"flip crossed {margin:.3g}; tokens routed differently, by step, "
+        f"not held: {json.dumps(moved_errs)}; CPU copy {copy_s:.3f} s, CPU run "
+        f"{cpu_s:.3f} s")
+    for s, g, w, mv in zip(steps, got, want, moved):
+        keep = [t for t in range(g.shape[0]) if t not in mv]
+        _close(g[keep], w[keep], f"{what}: {s} logits, card vs CPU")
+    return out
+
+
+def run_moe(dev):
+    """Phase 8: deepseek-v2-lite-16b (MLA mixers, MoE FFNs) at full width
+    and depth, and phi3.5-moe at full width and 4 of its layers, with
+    random weights from seeded generators; the serve launcher last. The
+    launch counts are set to 0 before (a) and read after (e). cuBLAS
+    sums bf16 products in f32 throughout the phase (no bf16 split-K
+    reduction), as the reference's products do."""
+    import dataclasses
+
+    from repro_torch import configs, obs
+    from repro_torch.data import tokens as data_lib
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.serve.engine import Engine
+
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    ops.reset_launch_counts()
+    out = {}
+    try:
+        # (a) deepseek-v2-lite-16b at full width and depth
+        cfg = configs.get(MOE_ARCH)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        torch.cuda.synchronize()
+        out["init_s"] = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        active = M.active_param_count(cfg)
+        if not (n_params == M.param_count(cfg) == MOE_PARAMS and active == MOE_ACTIVE):
+            raise AssertionError(f"{n_params:,} parameters ({active:,} active), want "
+                                 f"{MOE_PARAMS:,} ({MOE_ACTIVE:,})")
+        weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+        out.update(params=n_params, active_params=active,
+                   weight_gb=weight_bytes / 1e9, layers=len(model.layers),
+                   init_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        Bg, Sg, new = KNNLM_GEN
+        V = cfg.vocab
+        data_cfg = data_lib.DataConfig(vocab=V, seq=MOE_LONG + MOE_STEPS,
+                                       global_batch=Bg, seed=0)
+        batch = data_lib.batch_at(data_cfg, 0)["inputs"]
+        prompt = batch[:, :Sg]
+        eng = Engine(cfg, model, cache_len=Sg + new, seed=0, device=dev)
+        g1, _ = eng.generate(prompt, new)
+        cold = dict(eng.last_timing)
+        g2, _ = eng.generate(prompt, new)
+        warm = dict(eng.last_timing)
+        if not np.array_equal(g1, g2):
+            raise AssertionError("deepseek greedy generation differs between two runs")
+        out["generate_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        logits, cache = M.prefill(model, torch.from_numpy(prompt).to(dev), Sg + new)
+        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        M.decode_step(model, cache, tok, Sg)
+        split = profile_pass(lambda: M.decode_step(model, cache, tok, Sg + 1),
+                             classes=MOE_CLASSES)
+        del logits, cache
+        out["decode_profile"] = {key: split[key] for key in (
+            "by_class", "pass_host_ms", "device_busy_ms", "device_idle_share",
+            "device_events", "top_events")}
+        G = moe.n_groups(cfg, Bg)
+        out.update(
+            prefill_ms=1e3 * warm["prefill_s"],
+            decode_ms_per_token=1e3 * warm["decode_s"] / new,
+            decode_tokens_per_s=Bg * new / warm["decode_s"],
+            tokens_per_s=Bg * new / (warm["prefill_s"] + warm["decode_s"]),
+            cold_prefill_ms=1e3 * cold["prefill_s"],
+            cold_decode_ms_per_token=1e3 * cold["decode_s"] / new,
+            prefill_bound=moe_pass_bound(model, Bg * Sg),
+            decode_bound=moe_pass_bound(model, Bg),
+            decode_dispatch={"G": G, "C": moe.capacity(cfg, Bg // G)})
+        log(f"moe(a): {MOE_ARCH} on the card, {len(model.layers)} layers, "
+            f"{n_params:,} parameters ({active:,} active), "
+            f"{out['weight_gb']:.3f} GB of weights, init {out['init_s']:.3f} s "
+            f"(peak {out['init_peak_gb']:.3f} GB); Engine.generate batch {Bg}, "
+            f"prompt {Sg}, {new} new tokens: prefill {out['prefill_ms']:.3f} ms "
+            f"(bound {out['prefill_bound'][0]:.4f} ms, "
+            f"{out['prefill_bound'][1]}), decode {out['decode_ms_per_token']:.3f} "
+            f"ms/token (bound {out['decode_bound'][0]:.4f} ms, "
+            f"{out['decode_bound'][1]}: every expert's weights a step, G = "
+            f"{G}, C = {out['decode_dispatch']['C']}), "
+            f"{out['decode_tokens_per_s']:.1f} tokens/s decode, "
+            f"{out['tokens_per_s']:.1f} end to end (first call: prefill "
+            f"{out['cold_prefill_ms']:.3f} ms, decode "
+            f"{out['cold_decode_ms_per_token']:.3f} ms/token); greedy x2 equal; "
+            f"peak memory {out['generate_peak_gb']:.3f} GB; one decode step "
+            f"profiled: " + json.dumps(out["decode_profile"]))
+
+        # (b) card vs CPU: the first MOE_CUT layers, the same weights
+        cut = model_view(model, dataclasses.replace(cfg, n_layers=MOE_CUT))
+        out["cut_params"] = sum(p.numel() for p in cut.parameters())
+        log(f"moe(b): {MOE_ARCH}'s first {MOE_CUT} layers "
+            f"({[b.kind for b in cut.layers]}, {out['cut_params']:,} "
+            f"parameters), capacity factor {cfg.capacity_factor}: one group of "
+            f"{MOE_SHORT} tokens, C = {moe.capacity(cfg, MOE_SHORT)}")
+        x = torch.from_numpy(batch[:1, :MOE_SHORT + MOE_STEPS])
+        out["cut"] = card_vs_cpu(cut, x, "moe(b)")
+        del cut
+
+        # (c) prefill + decode == forward at full depth, no drops
+        cf = cfg.n_experts / cfg.top_k
+        whole = model_view(model, dataclasses.replace(cfg, capacity_factor=cf))
+        seq = torch.from_numpy(batch[:1]).to(dev)
+        L = MOE_LONG
+        (full, _), fcalls = routed(whole, lambda: M.forward(whole, seq))
+        ((logits, cache), pcalls) = routed(
+            whole, lambda: M.prefill(whole, seq[:, :L], L + MOE_STEPS))
+        errs = [_close(logits[:, -1], full[:, L - 1], "moe(c): prefill vs forward")]
+        dcalls = []
+        for i in range(MOE_STEPS):
+            (logits, cache), c = routed(whole, lambda i=i: M.decode_step(
+                whole, cache, seq[:, L + i:L + i + 1], L + i))
+            dcalls += c
+            errs.append(_close(logits[:, -1], full[:, L + i], f"moe(c): decode {i}"))
+        dropped = sum(int(c[3].sum()) for c in fcalls + pcalls + dcalls)
+        if dropped:
+            raise AssertionError(f"moe(c): {dropped} assignments dropped at "
+                                 f"capacity factor {cf}")
+        out["identity"] = {"max_abs_err": max(errs), "capacity_factor": cf,
+                           "forward_C": moe.capacity(whole.cfg, L + MOE_STEPS),
+                           "prefill_G": moe.n_groups(whole.cfg, L)}
+        del full, logits, cache, whole
+        log(f"moe(c): prefill({L}) + {MOE_STEPS} decode steps vs forward("
+            f"{L + MOE_STEPS}) at full depth: max |err| {max(errs):.5f} (tolerance "
+            f"{MODEL_TOL}); capacity factor {cf:.6f} = n_experts / top_k (the "
+            f"one change to the published config: C >= the tokens of a group, "
+            f"so nothing drops — at 1.25 prefill({L}) runs G = "
+            f"{moe.n_groups(cfg, L)}, C = {moe.capacity(cfg, L // moe.n_groups(cfg, L))} "
+            f"and forward({L + MOE_STEPS}) G = {moe.n_groups(cfg, L + MOE_STEPS)}, C = "
+            f"{moe.capacity(cfg, L + MOE_STEPS)}, which drop different tokens, in "
+            f"the reference too); dropped assignments 0 in "
+            f"{len(fcalls + pcalls + dcalls)} MoE calls")
+        del model, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) phi3.5-moe at full width, PHI_LAYERS layers
+        pcfg = dataclasses.replace(configs.get(PHI_ARCH), n_layers=PHI_LAYERS)
+        t0 = time.perf_counter()
+        phi = M.init_params(pcfg, torch.Generator(device=dev).manual_seed(1), dev)
+        torch.cuda.synchronize()
+        phi_init = time.perf_counter() - t0
+        phi_params = sum(p.numel() for p in phi.parameters())
+        if phi_params != M.param_count(pcfg):
+            raise AssertionError(f"phi3.5-moe: {phi_params:,} parameters")
+        log(f"moe(d): {PHI_ARCH} at full width, {PHI_LAYERS} of "
+            f"{configs.get(PHI_ARCH).n_layers} layers: {phi_params:,} parameters, "
+            f"init {phi_init:.3f} s; one group of {MOE_SHORT} tokens, C = "
+            f"{moe.capacity(pcfg, MOE_SHORT)}")
+        pdata = data_lib.DataConfig(vocab=pcfg.vocab, seq=MOE_SHORT + MOE_STEPS,
+                                    global_batch=Bg, seed=1)
+        pbatch = data_lib.batch_at(pdata, 0)["inputs"]
+        out["phi"] = card_vs_cpu(phi, torch.from_numpy(pbatch[:1]), "moe(d)")
+        peng = Engine(pcfg, phi, cache_len=Sg + new, seed=0, device=dev)
+        p1, _ = peng.generate(pbatch[:, :Sg], new)
+        p2, _ = peng.generate(pbatch[:, :Sg], new)
+        if not np.array_equal(p1, p2):
+            raise AssertionError("phi3.5-moe greedy generation differs between two runs")
+        t = peng.last_timing
+        out["phi"].update(
+            params=phi_params, init_s=phi_init, prefill_ms=1e3 * t["prefill_s"],
+            decode_ms_per_token=1e3 * t["decode_s"] / new,
+            tokens_per_s=Bg * new / (t["prefill_s"] + t["decode_s"]),
+            decode_bound=moe_pass_bound(phi, Bg))
+        log(f"moe(d): Engine.generate batch {Bg}, prompt {Sg}, {new} new tokens: "
+            f"prefill {out['phi']['prefill_ms']:.3f} ms, decode "
+            f"{out['phi']['decode_ms_per_token']:.3f} ms/token (bound "
+            f"{out['phi']['decode_bound'][0]:.4f} ms, "
+            f"{out['phi']['decode_bound'][1]}), {out['phi']['tokens_per_s']:.1f} "
+            f"tokens/s end to end; greedy x2 equal")
+        del phi, peng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (e) the serve launcher
+        obs.REGISTRY.reset()
+        t0 = time.perf_counter()
+        served = launch_serve.main(["--arch", MOE_ARCH, "--smoke", "--retrieval",
+                                    "--device", str(dev)])
+        out["launcher_s"] = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        counters = obs.snapshot()["counters"]
+        out.update(launcher_in_range=served["in_range"], launches=launches,
+                   launcher_fused={key: v for key, v in counters.items()
+                                   if key.startswith("engine.fused_traversal")})
+        log(f"moe(e): `python -m repro_torch.launch.serve --arch {MOE_ARCH} --smoke "
+            f"--retrieval` ran in {out['launcher_s']:.3f} s ({served['in_range']} "
+            f"in-range neighbours); launches over phase 8: {json.dumps(launches)}; "
+            f"the launcher's lookup dispatches {json.dumps(out['launcher_fused'])}")
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+    return launches, out
+
+
 def main_data():
     """The main path's data: highleyman 500,000 points, 5,300 uniform
     queries, r = 5% of the bbox diagonal."""
@@ -1876,6 +2288,11 @@ def main() -> int:
     log("knnlm: summary " + json.dumps(
         {k: v for k, v in knn.items() if k not in ("shapes",)}))
     lap("knnlm")
+    gc.collect()  # phase 7's model and store
+    torch.cuda.empty_cache()
+    moe_launches, moe_out = run_moe(dev)
+    log("moe: summary " + json.dumps(moe_out))
+    lap("moe")
     log("phase seconds " + json.dumps(seconds))
 
     bf = leaf_variants["bfloat16"]
@@ -1893,7 +2310,8 @@ def main() -> int:
                                           "shapes": dist_checked["leaf_topk"]},
                          "knnlm": {"launches": knn_launches["leaf_topk"],
                                    "shapes": knn_checked["leaf_topk"],
-                                   "d32_frontier_cap": knn_leaf}},
+                                   "d32_frontier_cap": knn_leaf},
+                         "moe": {"launches": moe_launches["leaf_topk"]}},
         },
         {
             # the final pass's shape, Q = 5,300, as in earlier runs; the
@@ -1914,7 +2332,8 @@ def main() -> int:
                 "launches_by_q": dist["topk_l2_launches_by_q"],
                 "shapes": dist_checked["topk_l2"]}, "knnlm": {
                 "launches": knn_launches["topk_l2"],
-                "shapes": knn_checked["topk_l2"]}},
+                "shapes": knn_checked["topk_l2"]},
+                "moe": {"launches": moe_launches["topk_l2"]}},
         },
     ]
     for name, src, replaces, res, main_key in (

@@ -79,14 +79,18 @@ def _take(tree, r):
     return np.asarray(tree)[r]
 
 
-def model_from_reference(cfg, values, device="cpu"):
+def model_from_reference(cfg, values, device="cuda"):
     """The port's model of `cfg` (a port `ModelConfig`) holding the
     numbers of the reference's value tree `values` (the first half of
     `split_params(init_params(...))`, numpy or device arrays), on
-    `device`. The reference's f32 weights of bf16 products are stored
-    rounded to bf16, as the reference rounds them at every use; norms
-    stay f32. Merged head axes: wq (d, H, hd) -> (d, H·hd), wo (H, hd, d)
-    -> (H·hd, d), biases (H, hd) -> (H·hd,)."""
+    `device` ("cuda" unless the caller asks for the CPU; no card raises).
+    Leaves are matched by name, the scan groups' stacked layers taken
+    apart (`_layer_values`). The reference's f32 weights of bf16 products
+    are stored rounded to bf16, as the reference rounds them at every use;
+    norms, the MoE router and MLA's w_uv (which the absorbed decode uses
+    unrounded) stay f32. Merged head axes: wq (d, H, hd) -> (d, H·hd), wo
+    (H, hd, d) -> (H·hd, d), biases (H, hd) -> (H·hd,), and MLA's the same
+    way."""
     import torch
 
     from .models import model as M
@@ -94,25 +98,35 @@ def model_from_reference(cfg, values, device="cpu"):
     dev = M.resolve_device(device)
     model = M.Model(cfg, device=dev)
 
-    def put(param, value):
-        v = torch.from_numpy(np.asarray(value, np.float32).copy())
-        param.data.copy_(v.reshape(param.shape).to(param.dtype))
-
     layers = _layer_values(cfg, values["groups"])
     if len(layers) != len(model.layers):
         raise ValueError(f"{len(layers)} reference layers, {len(model.layers)} "
                          f"in the port's {cfg.name}")
     with torch.no_grad():
         for block, ref in zip(model.layers, layers):
-            put(block.norm1, ref["norm1"])
-            for name, param in block.mixer.named_parameters():
-                put(param, ref["mixer"][name])
-            if "ffn" in ref:
-                put(block.norm2, ref["norm2"])
-                for name, param in block.ffn.items():
-                    put(param, ref["ffn"][name])
-        put(model.final_norm, values["final_norm"])
+            _load(block, ref)
+        _put(model.final_norm, values["final_norm"])
         for name in ("embed", "unembed"):
             if hasattr(model, name):
-                put(getattr(model, name), values[name])
+                _put(getattr(model, name), values[name])
     return model
+
+
+def _put(param, value):
+    """Copy a numpy (or device) array into `param`, reshaped and cast to
+    its shape and type."""
+    import torch
+
+    v = torch.from_numpy(np.asarray(value, np.float32).copy())
+    param.data.copy_(v.reshape(param.shape).to(param.dtype))
+
+
+def _load(module, tree):
+    """Copy the nested value tree `tree` into `module`'s parameters, each
+    found by its dotted name ("ffn.shared.w_up" -> tree["ffn"]["shared"]
+    ["w_up"])."""
+    for name, param in module.named_parameters():
+        leaf = tree
+        for key in name.split("."):
+            leaf = leaf[key]
+        _put(param, leaf)

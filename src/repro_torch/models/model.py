@@ -1,13 +1,14 @@
 """Model assembly: config -> parameters / forward / prefill / decode.
 
-A port of the reference's `models/model.py` for the configs whose layer
-plan is ("attn", "dense") only: qwen2-0.5b, qwen2-72b, granite-20b,
-h2o-danube-1.8b, and musicgen-medium and llava-next-34b through the
-embeddings frontend. The reference stacks a scan group's layers on a
-leading axis and scans them; the port holds a `ModuleList` of layers in
-the same order (`ModelConfig.scan_groups`), and a per-layer list of
-caches. The other mixers (MLA, RG-LRU, mLSTM / sLSTM) and the MoE FFN
-raise `NotImplementedError` when a model is made.
+A port of the reference's `models/model.py` for the configs whose layers
+are GQA or MLA mixers with dense or MoE FFNs: qwen2-0.5b, qwen2-72b,
+granite-20b, h2o-danube-1.8b, deepseek-v2-lite-16b, phi3.5-moe, and
+musicgen-medium and llava-next-34b through the embeddings frontend. The
+reference stacks a scan group's layers on a leading axis and scans them;
+the port holds a `ModuleList` of layers in the same order
+(`ModelConfig.scan_groups`), and a per-layer list of caches. The
+recurrent mixers (RG-LRU, mLSTM / sLSTM) raise `NotImplementedError`
+when a model is made.
 
 Every entry point runs on the device its model lives on. `init_params`
 puts a model on "cuda" unless the caller asks for the CPU, and raises
@@ -21,6 +22,7 @@ import torch
 from torch import nn
 
 from . import attention
+from . import moe as moe_mod
 from .config import ModelConfig
 from .layers import COMPUTE_DTYPE, PARAM_DTYPE, init_mlp, matmul, mlp, normal, rms_norm
 
@@ -33,12 +35,17 @@ MIXERS = {
         attention.attn_cache_shape,
         attention.attn_prefill,
     ),
+    "mla": (
+        attention.MLA,
+        attention.mla,
+        attention.mla_decode,
+        attention.mla_cache_shape,
+        attention.mla_prefill,
+    ),
 }
 
 # the slice of the port that brings each missing layer kind
 _LATER = {
-    "mla": "the MoE and MLA slice (deepseek-v2-lite)",
-    "moe": "the MoE and MLA slice (deepseek-v2-lite, phi3.5-moe)",
     "rglru": "the recurrent slice (recurrentgemma)",
     "rglru_noffn": "the recurrent slice (recurrentgemma)",
     "mlstm": "the xLSTM slice (xlstm-125m)",
@@ -94,8 +101,8 @@ def init_ffn(cfg: ModelConfig, device, generator=None) -> nn.ParameterDict:
 
 
 class Block(nn.Module):
-    """One (mixer, ffn) layer: pre-norm mixer and pre-norm FFN, each with
-    a residual add."""
+    """One (mixer, ffn) layer: pre-norm mixer and pre-norm FFN (dense or
+    MoE), each with a residual add."""
 
     def __init__(self, cfg: ModelConfig, kind: Tuple[str, str], device,
                  generator=None):
@@ -107,6 +114,9 @@ class Block(nn.Module):
         if ffn == "dense":
             self.norm2 = _vector(cfg.d_model, 1.0, device)
             self.ffn = init_ffn(cfg, device, generator)
+        elif ffn == "moe":
+            self.norm2 = _vector(cfg.d_model, 1.0, device)
+            self.ffn = moe_mod.MoE(cfg, device, generator)
 
 
 class Model(nn.Module):
@@ -164,8 +174,22 @@ def param_count(cfg: ModelConfig) -> int:
 
 
 def active_param_count(cfg: ModelConfig) -> int:
-    """Parameters used per token: all of them in a dense config."""
-    return param_count(cfg)
+    """Parameters used per token: the routed experts' weights (w_gate,
+    w_up, w_down of an MoE FFN) count top_k / n_experts of their size,
+    everything else in full. Equal to the reference's count at every
+    published config. (The reference's rule also scales any unstacked
+    3-D weight whose first axis equals n_experts; at full size there is
+    none, at reduced size deepseek's first-layer w_o (4, 16, 64) is one.)"""
+    model = Model(cfg, device="meta")
+    total = 0
+    for module in model.modules():
+        routed = isinstance(module, moe_mod.MoE)
+        for name, p in module.named_parameters(recurse=False):
+            n = p.numel()
+            if routed and name != "router":
+                n = n * cfg.top_k // cfg.n_experts
+            total += n
+    return int(total)
 
 
 # ===================================================================== #
@@ -173,7 +197,8 @@ def active_param_count(cfg: ModelConfig) -> int:
 # ===================================================================== #
 def _apply_block(block: Block, h, positions, cfg: ModelConfig, cache=None,
                  pos=None, cache_len: int = 0):
-    """One block. Returns (h, new_cache).
+    """One block. Returns (h, aux, new_cache): aux is the MoE FFN's
+    load-balance loss (f32), None for a dense block.
 
     cache is None, cache_len=0   -> plain forward
     cache is None, cache_len>0   -> prefill (forward + cache emission)
@@ -190,9 +215,13 @@ def _apply_block(block: Block, h, positions, cfg: ModelConfig, cache=None,
     else:
         y = apply_fn(block.mixer, hin, positions, cfg)
     h = h + y
+    aux = None
     if ffn == "dense":
         h = h + mlp(block.ffn, rms_norm(h, block.norm2, cfg.norm_eps))
-    return h, new_cache
+    elif ffn == "moe":
+        y, aux = block.ffn(rms_norm(h, block.norm2, cfg.norm_eps), cfg)
+        h = h + y
+    return h, aux, new_cache
 
 
 def _embed_in(model: Model, inputs):
@@ -216,14 +245,17 @@ def _positions(B: int, S: int, device):
 @torch.no_grad()
 def forward(model: Model, inputs) -> Tuple[torch.Tensor, torch.Tensor]:
     """inputs: (B, S) int tokens or (B, S, d) embeddings. Returns
-    (logits (B, S, vocab) bf16, aux loss 0 — dense configs have none)."""
+    (logits (B, S, vocab) bf16, the MoE layers' aux loss summed in f32 —
+    0 for a dense config)."""
     cfg = model.cfg
     B, S = inputs.shape[:2]
     positions = _positions(B, S, model.device)
     h = _embed_in(model, inputs)
-    for block in model.layers:
-        h, _ = _apply_block(block, h, positions, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=model.device)
+    for block in model.layers:
+        h, block_aux, _ = _apply_block(block, h, positions, cfg)
+        if block_aux is not None:
+            aux = aux + block_aux
     return _logits_out(model, h), aux
 
 
@@ -253,7 +285,7 @@ def decode_step(model: Model, cache: List[dict], tokens, pos: int):
     cfg = model.cfg
     h = _embed_in(model, tokens)
     for block, layer_cache in zip(model.layers, cache):
-        h, _ = _apply_block(block, h, None, cfg, cache=layer_cache, pos=int(pos))
+        h, _, _ = _apply_block(block, h, None, cfg, cache=layer_cache, pos=int(pos))
     return _logits_out(model, h), cache
 
 
@@ -271,6 +303,6 @@ def prefill(model: Model, tokens, cache_len: int):
     h = _embed_in(model, tokens)
     caches = []
     for block in model.layers:
-        h, c = _apply_block(block, h, positions, cfg, cache_len=cache_len)
+        h, _, c = _apply_block(block, h, positions, cfg, cache_len=cache_len)
         caches.append(c)
     return _logits_out(model, h), caches

@@ -570,3 +570,49 @@ def test_model_on_the_card_matches_the_cpu(dev):
                 break
             assert tg[b, i] == tw[b, i]
             np.testing.assert_allclose(hg[i][b], hw[i][b], **tol)
+
+
+def test_moe_model_on_the_card_matches_the_cpu(dev):
+    """The reduced deepseek-v2-lite (MLA mixers, a dense first layer, two
+    MoE layers) with deepseek's own routing — 64 experts, top-6, 2 shared
+    — at the published capacity factor 1.25, the same weights on the card
+    and on the CPU. One 63-token sequence is one dispatch group with
+    C = 8, so assignments drop. Forward, prefill(63) and 3 decode steps:
+    every MoE call chooses the same experts and drops the same count on
+    both, and the logits agree within rtol 0.03, atol 0.03 (bf16 products
+    summed in another order on each device, as for the dense model)."""
+    import copy
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(
+        configs.get("deepseek-v2-lite-16b").reduced(), n_experts=64, top_k=6,
+        n_shared=2, capacity_factor=1.25)
+    cpu = M.init_params(cfg, 3, "cpu")
+    card = copy.deepcopy(cpu).to(dev)
+    tol = dict(rtol=0.03, atol=0.03)
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 66)).astype(np.int32))
+
+    def run(model, device):
+        with moe.routing_trace(model) as calls:
+            out = [M.forward(model, x[:, :63].to(device))[0]]
+            logits, cache = M.prefill(model, x[:, :63].to(device), 66)
+            out.append(logits)
+            for i in range(3):
+                tok = x[:, 63 + i:64 + i].to(device)
+                logits, cache = M.decode_step(model, cache, tok, 63 + i)
+                out.append(logits)
+        return out, [(n, e.cpu(), int(d.sum())) for n, _, e, d in calls]
+
+    want, want_calls = run(cpu, "cpu")
+    got, got_calls = run(card, dev)
+    assert len(got_calls) == len(want_calls) == 2 * 5
+    assert sum(d for _, _, d in want_calls) > 0
+    for (n, e, d), (wn, we, wd) in zip(got_calls, want_calls):
+        assert n == wn and d == wd and torch.equal(e, we)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.float().cpu().numpy(), w.float().numpy(), **tol)

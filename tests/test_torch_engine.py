@@ -54,7 +54,7 @@ def _pair():
     rcfg = ref_configs.get(ARCH).reduced()
     values, _ = split_params(ref_model.init_params(rcfg, jax.random.PRNGKey(0)))
     cfg = configs.get(ARCH).reduced()
-    return rcfg, values, cfg, convert.model_from_reference(cfg, values)
+    return rcfg, values, cfg, convert.model_from_reference(cfg, values, device="cpu")
 
 
 def _prompt(cfg, B=2, S=12, seed=11):
