@@ -169,6 +169,40 @@ Phases, in order; any failure raises and the script exits non-zero:
                (e) the serve launcher (`--arch deepseek-v2-lite-16b
                    --smoke --retrieval`), its launch counts and the
                    lookup's dispatch kind.
+  9. recurrent — the recurrent mixers (RG-LRU; mLSTM / sLSTM), with
+               random weights from seeded generators; phase 8's models
+               freed first, bf16 split-K reduction off as in phase 8. The
+               launch counts are set to 0 before (a) and read after (e):
+               (a) recurrentgemma-9b at its full published width and
+                   depth (38 layers: 26 RG-LRU, 12 local MQA attention,
+                   window 2,048, one KV head, head_dim 256; d = d_rnn =
+                   4,096, vocab 256,000, untied; 9,627,095,040
+                   parameters): parameter count, weight and peak memory;
+                   `Engine.generate` at the launcher's defaults, greedy
+                   twice equal; prefill ms and decode ms per token beside
+                   their bounds, tokens/s; one decode step profiled:
+                   device events by class, busy ms, idle share;
+               (b) its first 3 layers (rglru, rglru, attn) on the card
+                   and, copied, on the CPU: forward and prefill of 63
+                   tokens and 3 decode steps, max |err| and argmax
+                   agreement, within the reference's tolerance;
+               (c) prefill(2,048) + 3 decode steps against forward(2,051)
+                   at full depth, batch 1: the attention's rolling buffer
+                   (T = 2,048) wraps at the first decode, the RG-LRU
+                   states and conv windows carry across;
+               (d) xlstm-125m whole (12 layers: 9 mLSTM, 3 sLSTM, d = 768,
+                   tied, no FFN): card against CPU as in (b), held layer
+                   by layer on the card's input (each layer's output and
+                   the logits; end to end a one-ulp change moves its
+                   random-weight logits by ~0.5, on the CPU alone too:
+                   printed, with the CPU's spread between thread counts);
+                   prefill(2,048) + 3 decode steps against forward(2,304)
+                   (9 mLSTM chunks of 256; positions 2,047-2,050);
+                   `Engine.generate`, greedy twice equal, decode ms per
+                   token;
+               (e) the serve launcher (`--arch xlstm-125m --smoke
+                   --retrieval`), its launch counts and the lookup's
+                   dispatch kind.
 
 Kernel times ("ms") are CUDA-event means over back-to-back eager calls
 through the wrapper, what the port pays. For the two launch-bound
@@ -1882,15 +1916,17 @@ def routed(model, fn):
     return out, [(n, x.cpu(), e.cpu(), d.cpu()) for n, x, e, d in calls]
 
 
-def moe_pass_bound(model, tokens: int) -> tuple:
+def pass_bound(model, tokens: int) -> tuple:
     """(bound ms, what bounds it) of one pass of `tokens` tokens (a
     prefill of B x S, or a decode step of B): every weight read once but
-    the embedding table (one row a token); 2 operations a weight a token
-    for every product outside the routed experts (bf16 at the tensor
-    cores' rate, the f32 router's few among them), and each MoE layer's
-    expert products over all its E x G·C capacity rows, which the
+    an untied embedding table (one row a token); 2 operations a weight a
+    token for every product outside the routed experts (at the tensor
+    cores' bf16 rate, the f32 products' few among them: the router, the
+    RG-LRU's block-diagonal gates, the xLSTM's gates), and each MoE
+    layer's expert products over all its E x G·C capacity rows, which the
     dispatch computes whether they hold a token or not. The attention
-    scores and values are left out, so the bound stays a lower one."""
+    scores and values, the recurrences' state updates and the
+    elementwise work are left out, so the bound stays a lower one."""
     from repro_torch.models import moe
 
     cfg = model.cfg
@@ -1898,11 +1934,12 @@ def moe_pass_bound(model, tokens: int) -> tuple:
         p.numel() for m in model.modules() if isinstance(m, moe.MoE)
         for n, p in m.named_parameters(recurse=False) if n != "router")
     n_moe = sum(isinstance(m, moe.MoE) for m in model.modules())
-    embed = model.embed.numel() if hasattr(model, "embed") else 0
+    untied = hasattr(model, "embed") and not cfg.tied_embeddings
+    gathered = model.embed.numel() if untied else 0
     weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    n_bytes = weight_bytes - embed * 2 + tokens * cfg.d_model * 2
+    n_bytes = weight_bytes - gathered * 2 + tokens * cfg.d_model * 2
     ops = 2 * tokens * (sum(p.numel() for p in model.parameters())
-                        - embed - routed_params)
+                        - gathered - routed_params)
     if n_moe:
         G = moe.n_groups(cfg, tokens)
         C = moe.capacity(cfg, tokens // G)
@@ -1918,6 +1955,22 @@ def _token_routes(flat_e, dropped, k):
     d = dropped.reshape(-1, k).tolist()
     return [(tuple(sorted(es)), tuple(sorted(x for x, gone in zip(es, ds) if not gone)))
             for es, ds in zip(e, d)]
+
+
+def short_run(model, x, n: int, steps: int) -> list:
+    """forward(x[:, :n]), prefill of the same tokens and `steps` decode
+    steps of the next tokens: the first sequence's logits of each, on the
+    CPU in f32."""
+    from repro_torch.models import model as M
+
+    xs = x.to(model.device)
+    out = [M.forward(model, xs[:, :n])[0]]
+    logits, cache = M.prefill(model, xs[:, :n], n + steps)
+    out.append(logits)
+    for i in range(steps):
+        logits, cache = M.decode_step(model, cache, xs[:, n + i:n + i + 1], n + i)
+        out.append(logits)
+    return [o.float().cpu()[0] for o in out]
 
 
 def card_vs_cpu(card, x, what) -> dict:
@@ -1944,19 +1997,9 @@ def card_vs_cpu(card, x, what) -> dict:
     copy_s = time.perf_counter() - t0
     cfg, n, k = card.cfg, MOE_SHORT, card.cfg.top_k
 
-    def run(model):
-        xs = x.to(model.device)
-        out = [M.forward(model, xs[:, :n])[0]]
-        logits, cache = M.prefill(model, xs[:, :n], n + MOE_STEPS)
-        out.append(logits)
-        for i in range(MOE_STEPS):
-            logits, cache = M.decode_step(model, cache, xs[:, n + i:n + i + 1], n + i)
-            out.append(logits)
-        return [o.float().cpu()[0] for o in out]
-
-    got, got_calls = routed(card, lambda: run(card))
+    got, got_calls = routed(card, lambda: short_run(card, x, n, MOE_STEPS))
     t0 = time.perf_counter()
-    want, want_calls = routed(cpu, lambda: run(cpu))
+    want, want_calls = routed(cpu, lambda: short_run(cpu, x, n, MOE_STEPS))
     cpu_s = time.perf_counter() - t0
     if [c[0] for c in got_calls] != [c[0] for c in want_calls]:
         raise AssertionError(f"{what}: MoE calls differ, card vs CPU")
@@ -2088,8 +2131,8 @@ def run_moe(dev):
             tokens_per_s=Bg * new / (warm["prefill_s"] + warm["decode_s"]),
             cold_prefill_ms=1e3 * cold["prefill_s"],
             cold_decode_ms_per_token=1e3 * cold["decode_s"] / new,
-            prefill_bound=moe_pass_bound(model, Bg * Sg),
-            decode_bound=moe_pass_bound(model, Bg),
+            prefill_bound=pass_bound(model, Bg * Sg),
+            decode_bound=pass_bound(model, Bg),
             decode_dispatch={"G": G, "C": moe.capacity(cfg, Bg // G)})
         log(f"moe(a): {MOE_ARCH} on the card, {len(model.layers)} layers, "
             f"{n_params:,} parameters ({active:,} active), "
@@ -2183,7 +2226,7 @@ def run_moe(dev):
             params=phi_params, init_s=phi_init, prefill_ms=1e3 * t["prefill_s"],
             decode_ms_per_token=1e3 * t["decode_s"] / new,
             tokens_per_s=Bg * new / (t["prefill_s"] + t["decode_s"]),
-            decode_bound=moe_pass_bound(phi, Bg))
+            decode_bound=pass_bound(phi, Bg))
         log(f"moe(d): Engine.generate batch {Bg}, prompt {Sg}, {new} new tokens: "
             f"prefill {out['phi']['prefill_ms']:.3f} ms, decode "
             f"{out['phi']['decode_ms_per_token']:.3f} ms/token (bound "
@@ -2209,6 +2252,313 @@ def run_moe(dev):
             f"--retrieval` ran in {out['launcher_s']:.3f} s ({served['in_range']} "
             f"in-range neighbours); launches over phase 8: {json.dumps(launches)}; "
             f"the launcher's lookup dispatches {json.dumps(out['launcher_fused'])}")
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+    return launches, out
+
+
+# -- phase 9: the recurrent mixers ------------------------------------------------
+RECUR_ARCH = "recurrentgemma-9b"
+RECUR_PARAMS = 9_627_095_040     # the reference's param_count of recurrentgemma-9b
+XLSTM_ARCH = "xlstm-125m"
+XLSTM_PARAMS = 150_253_896       # and of xlstm-125m
+RECUR_CUT = 3     # (b): one Griffin unit, (rglru, rglru, attn)
+RECUR_SHORT = 63  # (b), (d): prompt length, card vs CPU
+RECUR_LONG = 2048  # (c), (d): prefill length of the decode identity
+RECUR_STEPS = 3   # decode steps of (b), (c), (d)
+# (d): the forward the identity is held against: the mLSTM's chunkwise
+# form needs a multiple of its chunk (256), so 9 chunks, of which
+# positions RECUR_LONG - 1 .. RECUR_LONG + RECUR_STEPS - 1 are compared
+XLSTM_FORWARD = 2304
+
+
+def model_vs_cpu(card, x, what) -> dict:
+    """Phase 9 (b) and (d): `card`'s weights copied to the CPU; on both,
+    forward(x[:, :RECUR_SHORT]), prefill of the same tokens and
+    RECUR_STEPS decode steps, each step's logits within MODEL_TOL; the
+    largest |error| of each and the argmax agreement over all."""
+    from repro_torch.models import model as M
+
+    t0 = time.perf_counter()
+    cpu = M.Model(card.cfg, "cpu")
+    cpu.load_state_dict(card.state_dict())
+    copy_s = time.perf_counter() - t0
+    got = short_run(card, x, RECUR_SHORT, RECUR_STEPS)
+    t0 = time.perf_counter()
+    want = short_run(cpu, x, RECUR_SHORT, RECUR_STEPS)
+    cpu_s = time.perf_counter() - t0
+    del cpu
+    steps = ["forward", "prefill"] + [f"decode {i}" for i in range(RECUR_STEPS)]
+    errs = {s: _close(g, w, f"{what}: {s} logits, card vs CPU")
+            for s, g, w in zip(steps, got, want)}
+    agree = float(np.mean([(g.argmax(-1) == w.argmax(-1)).float().mean().item()
+                           for g, w in zip(got, want)]))
+    log(f"{what}: card vs CPU, forward / prefill of {RECUR_SHORT} tokens and "
+        f"{RECUR_STEPS} decode steps: max |err| {json.dumps(errs)} (tolerance "
+        f"{MODEL_TOL}), argmax agree {agree:.4f}; CPU copy {copy_s:.3f} s, CPU run "
+        f"{cpu_s:.3f} s")
+    return {"max_abs_err": errs, "argmax_agree": agree, "cpu_copy_s": copy_s,
+            "cpu_s": cpu_s}
+
+
+def layerwise_vs_cpu(card, x, what) -> dict:
+    """Phase 9 (d): `card`'s weights copied to the CPU, held layer by layer
+    on the same input. forward(x[:, :RECUR_SHORT]), prefill of the same
+    tokens and RECUR_STEPS decode steps run on the card; every layer's
+    input on the card is also fed to the CPU's copy of that layer (each
+    device keeps its own prefill cache and decode states), and the two
+    outputs, and the logits of the card's last hidden state, must agree
+    within MODEL_TOL. End to end the two devices are not held: xlstm-125m
+    with random weights carries a one-ulp change of its input through
+    the mLSTM's exp input gates and its norm of the memory readout into
+    later logits at ~0.5, so the card's and the CPU's whole runs differ
+    as much as the CPU's own runs at two thread counts, both printed."""
+    from repro_torch.models import model as M
+
+    cfg, n = card.cfg, RECUR_SHORT
+    cpu = M.Model(cfg, "cpu")
+    cpu.load_state_dict(card.state_dict())
+    dev = card.device
+    xs = x.to(dev)
+    errs = {}
+
+    def held(step, got, want, layer):
+        err = _close(got, want, f"{what}: {step}, layer {layer}, card vs CPU on the "
+                                f"card's input")
+        errs[step] = max(errs.get(step, 0.0), err)
+
+    def logits(step, h):
+        held(step, M._logits_out(card, h), M._logits_out(cpu, h.cpu()), "logits")
+
+    pos = M._positions(1, n, dev)
+    h = M._embed_in(card, xs[:, :n])
+    for i, (bc, bp) in enumerate(zip(card.layers, cpu.layers)):
+        out = M._apply_block(bc, h, pos, cfg)[0]
+        held("forward", out, M._apply_block(bp, h.cpu(), pos.cpu(), cfg)[0], i)
+        h = out
+    logits("forward", h)
+    h = M._embed_in(card, xs[:, :n])
+    caches = []
+    for i, (bc, bp) in enumerate(zip(card.layers, cpu.layers)):
+        out, _, cc = M._apply_block(bc, h, pos, cfg, cache_len=n + RECUR_STEPS)
+        want, _, cp = M._apply_block(bp, h.cpu(), pos.cpu(), cfg,
+                                     cache_len=n + RECUR_STEPS)
+        held("prefill", out, want, i)
+        caches.append((cc, cp))
+        h = out
+    logits("prefill", h)
+    for t in range(n, n + RECUR_STEPS):
+        step = f"decode {t - n}"
+        h = M._embed_in(card, xs[:, t:t + 1])
+        for i, ((bc, bp), (cc, cp)) in enumerate(zip(zip(card.layers, cpu.layers), caches)):
+            out = M._apply_block(bc, h, None, cfg, cache=cc, pos=t)[0]
+            held(step, out, M._apply_block(bp, h.cpu(), None, cfg, cache=cp, pos=t)[0], i)
+            h = out
+        logits(step, h)
+    # unheld: the whole runs, and the CPU's spread between thread counts
+    got = short_run(card, x, n, RECUR_STEPS)
+    want = short_run(cpu, x, n, RECUR_STEPS)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        one = short_run(cpu, x, n, RECUR_STEPS)
+    finally:
+        torch.set_num_threads(threads)
+    del cpu
+    whole = float(max((g - w).abs().max() for g, w in zip(got, want)))
+    spread = float(max((a - w).abs().max() for a, w in zip(one, want)))
+    agree = float(np.mean([(g.argmax(-1) == w.argmax(-1)).float().mean().item()
+                           for g, w in zip(got, want)]))
+    log(f"{what}: card vs CPU layer by layer on the card's input ({len(card.layers)} "
+        f"layers, forward / prefill of {n} tokens and {RECUR_STEPS} decode steps, "
+        f"each layer's output and the logits): max |err| {json.dumps(errs)} "
+        f"(tolerance {MODEL_TOL}); whole runs, not held: card vs CPU max |err| "
+        f"{whole:.5f}, argmax agree {agree:.4f}; the CPU at 1 against {threads} "
+        f"threads max |diff| {spread:.5f}")
+    return {"max_abs_err": errs, "whole_max_abs_err": whole, "argmax_agree": agree,
+            "cpu_threads_spread": spread}
+
+
+def decode_identity(model, seq, L, what) -> float:
+    """prefill(seq[:, :L]) + RECUR_STEPS decode steps against forward(seq):
+    the logits of positions L - 1 .. L + RECUR_STEPS - 1 within MODEL_TOL;
+    the largest |error|."""
+    from repro_torch.models import model as M
+
+    full, _ = M.forward(model, seq)
+    logits, cache = M.prefill(model, seq[:, :L], L + RECUR_STEPS)
+    errs = [_close(logits[:, -1], full[:, L - 1], f"{what}: prefill vs forward")]
+    for i in range(RECUR_STEPS):
+        logits, cache = M.decode_step(model, cache, seq[:, L + i:L + i + 1], L + i)
+        errs.append(_close(logits[:, -1], full[:, L + i], f"{what}: decode {i} vs forward"))
+    return max(errs)
+
+
+def generate_twice(cfg, model, prompt, new, dev, what) -> dict:
+    """`Engine.generate` of `prompt`, greedy, twice: equal tokens; the
+    second run's prefill ms, decode ms per token and tokens/s, and the
+    first run's."""
+    from repro_torch.serve.engine import Engine
+
+    B, S = prompt.shape
+    eng = Engine(cfg, model, cache_len=S + new, seed=0, device=dev)
+    g1, _ = eng.generate(prompt, new)
+    cold = dict(eng.last_timing)
+    g2, _ = eng.generate(prompt, new)
+    warm = dict(eng.last_timing)
+    if not np.array_equal(g1, g2):
+        raise AssertionError(f"{what}: greedy generation differs between two runs")
+    return {"prefill_ms": 1e3 * warm["prefill_s"],
+            "decode_ms_per_token": 1e3 * warm["decode_s"] / new,
+            "decode_tokens_per_s": B * new / warm["decode_s"],
+            "tokens_per_s": B * new / (warm["prefill_s"] + warm["decode_s"]),
+            "cold_prefill_ms": 1e3 * cold["prefill_s"],
+            "cold_decode_ms_per_token": 1e3 * cold["decode_s"] / new}
+
+
+def run_recurrent(dev):
+    """Phase 9: recurrentgemma-9b (RG-LRU and local MQA) at full width and
+    depth, and xlstm-125m (mLSTM, sLSTM) whole, with random weights from
+    seeded generators; the serve launcher last. The launch counts are set
+    to 0 before (a) and read after (e). cuBLAS sums bf16 products in f32
+    throughout the phase, as in phase 8."""
+    import dataclasses
+
+    from repro_torch import configs, obs
+    from repro_torch.data import tokens as data_lib
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import model as M
+
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    ops.reset_launch_counts()
+    out = {}
+    Bg, Sg, new = KNNLM_GEN
+    try:
+        # (a) recurrentgemma-9b at full width and depth
+        cfg = configs.get(RECUR_ARCH)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        torch.cuda.synchronize()
+        out["init_s"] = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        if not n_params == M.param_count(cfg) == RECUR_PARAMS:
+            raise AssertionError(f"{n_params:,} parameters, want {RECUR_PARAMS:,}")
+        weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+        kinds = [b.kind[0] for b in model.layers]
+        out.update(params=n_params, weight_gb=weight_bytes / 1e9,
+                   layers={k: kinds.count(k) for k in sorted(set(kinds))},
+                   init_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        data_cfg = data_lib.DataConfig(vocab=cfg.vocab, seq=RECUR_LONG + RECUR_STEPS,
+                                       global_batch=Bg, seed=0)
+        batch = data_lib.batch_at(data_cfg, 0)["inputs"]
+        out.update(generate_twice(cfg, model, batch[:, :Sg], new, dev, "recurrent(a)"))
+        out["generate_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        logits, cache = M.prefill(model, torch.from_numpy(batch[:, :Sg]).to(dev), Sg + new)
+        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        M.decode_step(model, cache, tok, Sg)
+        split = profile_pass(lambda: M.decode_step(model, cache, tok, Sg + 1),
+                             classes=DECODE_CLASSES)
+        del logits, cache
+        out["decode_profile"] = {key: split[key] for key in (
+            "by_class", "pass_host_ms", "device_busy_ms", "device_idle_share",
+            "device_events", "top_events")}
+        out.update(prefill_bound=pass_bound(model, Bg * Sg),
+                   decode_bound=pass_bound(model, Bg))
+        log(f"recurrent(a): {RECUR_ARCH} on the card, {len(model.layers)} layers "
+            f"{out['layers']}, {n_params:,} parameters, {out['weight_gb']:.3f} GB of "
+            f"weights, init {out['init_s']:.3f} s (peak {out['init_peak_gb']:.3f} GB); "
+            f"Engine.generate batch {Bg}, prompt {Sg}, {new} new tokens: prefill "
+            f"{out['prefill_ms']:.3f} ms (bound {out['prefill_bound'][0]:.4f} ms, "
+            f"{out['prefill_bound'][1]}), decode {out['decode_ms_per_token']:.3f} "
+            f"ms/token (bound {out['decode_bound'][0]:.4f} ms, "
+            f"{out['decode_bound'][1]}), {out['decode_tokens_per_s']:.1f} tokens/s "
+            f"decode, {out['tokens_per_s']:.1f} end to end (first call: prefill "
+            f"{out['cold_prefill_ms']:.3f} ms, decode "
+            f"{out['cold_decode_ms_per_token']:.3f} ms/token); greedy x2 equal; "
+            f"peak memory {out['generate_peak_gb']:.3f} GB; one decode step "
+            f"profiled: " + json.dumps(out["decode_profile"]))
+
+        # (b) card vs CPU: one Griffin unit, the same weights
+        cut = model_view(model, dataclasses.replace(cfg, n_layers=RECUR_CUT))
+        log(f"recurrent(b): {RECUR_ARCH}'s first {RECUR_CUT} layers "
+            f"({[b.kind for b in cut.layers]}, "
+            f"{sum(p.numel() for p in cut.parameters()):,} parameters)")
+        x = torch.from_numpy(batch[:1, :RECUR_SHORT + RECUR_STEPS])
+        out["cut"] = model_vs_cpu(cut, x, "recurrent(b)")
+        del cut
+
+        # (c) prefill + decode == forward at full depth: the local
+        # attention's rolling buffer (T = window) wraps at the first decode
+        seq = torch.from_numpy(batch[:1]).to(dev)
+        out["identity_err"] = decode_identity(model, seq, RECUR_LONG, "recurrent(c)")
+        T = M.cache_shapes(cfg, 1, RECUR_LONG + RECUR_STEPS)[2]["k"][0][1]
+        log(f"recurrent(c): prefill({RECUR_LONG}) + {RECUR_STEPS} decode steps vs "
+            f"forward({RECUR_LONG + RECUR_STEPS}) at full depth, batch 1: max |err| "
+            f"{out['identity_err']:.5f} (tolerance {MODEL_TOL}); the attention "
+            f"layers' rolling buffer T = {T} wraps at decode position {RECUR_LONG} "
+            f"(slot {RECUR_LONG % T}); RG-LRU states and conv windows carried")
+        del model, seq
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) xlstm-125m whole
+        xcfg = configs.get(XLSTM_ARCH)
+        t0 = time.perf_counter()
+        xl = M.init_params(xcfg, torch.Generator(device=dev).manual_seed(1), dev)
+        torch.cuda.synchronize()
+        x_init = time.perf_counter() - t0
+        x_params = sum(p.numel() for p in xl.parameters())
+        if not x_params == M.param_count(xcfg) == XLSTM_PARAMS:
+            raise AssertionError(f"xlstm-125m: {x_params:,} parameters")
+        xkinds = [b.kind[0] for b in xl.layers]
+        log(f"recurrent(d): {XLSTM_ARCH}, {len(xl.layers)} layers "
+            f"{ {k: xkinds.count(k) for k in sorted(set(xkinds))} }, {x_params:,} "
+            f"parameters, tied embeddings: {xcfg.tied_embeddings}, init {x_init:.3f} s")
+        xdata = data_lib.DataConfig(vocab=xcfg.vocab, seq=XLSTM_FORWARD,
+                                    global_batch=Bg, seed=1)
+        xbatch = data_lib.batch_at(xdata, 0)["inputs"]
+        out["xlstm"] = layerwise_vs_cpu(xl, torch.from_numpy(xbatch[:1]), "recurrent(d)")
+        t0 = time.perf_counter()
+        out["xlstm"]["identity_err"] = decode_identity(
+            xl, torch.from_numpy(xbatch[:1]).to(dev), RECUR_LONG, "recurrent(d)")
+        torch.cuda.synchronize()
+        out["xlstm"]["identity_s"] = time.perf_counter() - t0
+        out["xlstm"].update(generate_twice(xcfg, xl, xbatch[:, :Sg], new, dev,
+                                           "recurrent(d)"))
+        out["xlstm"].update(params=x_params, init_s=x_init,
+                            decode_bound=pass_bound(xl, Bg))
+        xo = out["xlstm"]
+        log(f"recurrent(d): prefill({RECUR_LONG}) + {RECUR_STEPS} decode steps vs "
+            f"forward({XLSTM_FORWARD}) (positions {RECUR_LONG - 1}-"
+            f"{RECUR_LONG + RECUR_STEPS - 1}): max |err| {xo['identity_err']:.5f} "
+            f"({xo['identity_s']:.3f} s); Engine.generate batch {Bg}, prompt {Sg}, "
+            f"{new} new tokens: prefill {xo['prefill_ms']:.3f} ms, decode "
+            f"{xo['decode_ms_per_token']:.3f} ms/token (bound "
+            f"{xo['decode_bound'][0]:.4f} ms, {xo['decode_bound'][1]}), "
+            f"{xo['tokens_per_s']:.1f} tokens/s end to end; greedy x2 equal")
+        del xl
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (e) the serve launcher
+        obs.REGISTRY.reset()
+        t0 = time.perf_counter()
+        served = launch_serve.main(["--arch", XLSTM_ARCH, "--smoke", "--retrieval",
+                                    "--device", str(dev)])
+        out["launcher_s"] = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        counters = obs.snapshot()["counters"]
+        out.update(launcher_in_range=served["in_range"], launches=launches,
+                   launcher_fused={key: v for key, v in counters.items()
+                                   if key.startswith("engine.fused_traversal")})
+        log(f"recurrent(e): `python -m repro_torch.launch.serve --arch {XLSTM_ARCH} "
+            f"--smoke --retrieval` ran in {out['launcher_s']:.3f} s "
+            f"({served['in_range']} in-range neighbours); launches over phase 9: "
+            f"{json.dumps(launches)}; the launcher's lookup dispatches "
+            f"{json.dumps(out['launcher_fused'])}")
     finally:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
     return launches, out
@@ -2293,6 +2643,11 @@ def main() -> int:
     moe_launches, moe_out = run_moe(dev)
     log("moe: summary " + json.dumps(moe_out))
     lap("moe")
+    gc.collect()  # phase 8's models
+    torch.cuda.empty_cache()
+    rec_launches, rec_out = run_recurrent(dev)
+    log("recurrent: summary " + json.dumps(rec_out))
+    lap("recurrent")
     log("phase seconds " + json.dumps(seconds))
 
     bf = leaf_variants["bfloat16"]
@@ -2311,7 +2666,8 @@ def main() -> int:
                          "knnlm": {"launches": knn_launches["leaf_topk"],
                                    "shapes": knn_checked["leaf_topk"],
                                    "d32_frontier_cap": knn_leaf},
-                         "moe": {"launches": moe_launches["leaf_topk"]}},
+                         "moe": {"launches": moe_launches["leaf_topk"]},
+                         "recurrent": {"launches": rec_launches["leaf_topk"]}},
         },
         {
             # the final pass's shape, Q = 5,300, as in earlier runs; the
@@ -2333,7 +2689,8 @@ def main() -> int:
                 "shapes": dist_checked["topk_l2"]}, "knnlm": {
                 "launches": knn_launches["topk_l2"],
                 "shapes": knn_checked["topk_l2"]},
-                "moe": {"launches": moe_launches["topk_l2"]}},
+                "moe": {"launches": moe_launches["topk_l2"]},
+                "recurrent": {"launches": rec_launches["topk_l2"]}},
         },
     ]
     for name, src, replaces, res, main_key in (
@@ -2347,7 +2704,8 @@ def main() -> int:
             "max_abs_err": max(v["max_abs_err"] for v in res.values()),
             "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
-            "library_ms": m["library_ms"], "variants": res,
+            "library_ms": m["library_ms"],
+            "variants": {**res, "recurrent": {"launches": rec_launches[name]}},
             **({"graph_ms": m["graph_ms"]} if "graph_ms" in m else {}),
         })
     print(json.dumps({"kernels": kernels}))

@@ -87,10 +87,13 @@ def model_from_reference(cfg, values, device="cuda"):
     Leaves are matched by name, the scan groups' stacked layers taken
     apart (`_layer_values`). The reference's f32 weights of bf16 products
     are stored rounded to bf16, as the reference rounds them at every use;
-    norms, the MoE router and MLA's w_uv (which the absorbed decode uses
-    unrounded) stay f32. Merged head axes: wq (d, H, hd) -> (d, H·hd), wo
-    (H, hd, d) -> (H·hd, d), biases (H, hd) -> (H·hd,), and MLA's the same
-    way."""
+    the weights it uses in f32 arithmetic stay f32, unrounded: norms, the
+    MoE router, MLA's w_uv (which the absorbed decode uses unrounded), the
+    RG-LRU's conv_w, conv_b, w_r, w_i, b_r, b_i and lam, the mLSTM's w_i,
+    w_f, b_i, b_f and norm, and the sLSTM's w_g, r_g and b_g of its four
+    gates. Merged head axes: wq (d, H, hd) -> (d, H·hd), wo (H, hd, d) ->
+    (H·hd, d), biases (H, hd) -> (H·hd,), and MLA's the same way; the
+    block-diagonal and recurrent (nh, dh, dh) weights keep their shape."""
     import torch
 
     from .models import model as M

@@ -28,6 +28,7 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 COMPUTE_DTYPE = torch.bfloat16
 PARAM_DTYPE = torch.float32
@@ -47,6 +48,21 @@ def fanin(shape, generator: torch.Generator, device, fan_axis: int = 0,
     """N(0, 1/fan) with fan = shape[fan_axis], as the reference draws it."""
     return normal(shape, generator, device, std=shape[fan_axis] ** -0.5,
                   dtype=dtype)
+
+
+def register_params(module, shapes: dict, device, generator) -> None:
+    """Register `shapes` on `module` as frozen parameters, in order: a
+    value (shape, fan_axis, dtype) is a fan-in normal drawn from
+    `generator` (left empty without one, to be loaded or counted); a
+    value (shape, None, dtype, fill) a constant."""
+    for name, (shape, fan_axis, dtype, *fill) in shapes.items():
+        if fill:
+            t = torch.full(shape, fill[0], dtype=dtype, device=device)
+        elif generator is None:
+            t = torch.empty(shape, dtype=dtype, device=device)
+        else:
+            t = fanin(shape, generator, device, fan_axis=fan_axis, dtype=dtype)
+        module.register_parameter(name, nn.Parameter(t, requires_grad=False))
 
 
 # --------------------------------------------------------------------- #

@@ -1,14 +1,12 @@
 """Model assembly: config -> parameters / forward / prefill / decode.
 
-A port of the reference's `models/model.py` for the configs whose layers
-are GQA or MLA mixers with dense or MoE FFNs: qwen2-0.5b, qwen2-72b,
-granite-20b, h2o-danube-1.8b, deepseek-v2-lite-16b, phi3.5-moe, and
-musicgen-medium and llava-next-34b through the embeddings frontend. The
+A port of the reference's `models/model.py` for all ten configs: GQA,
+MLA, RG-LRU and mLSTM / sLSTM mixers (`MIXERS`) with dense, MoE or no
+FFNs (xlstm-125m's blocks carry their projections and have none). The
 reference stacks a scan group's layers on a leading axis and scans them;
 the port holds a `ModuleList` of layers in the same order
-(`ModelConfig.scan_groups`), and a per-layer list of caches. The
-recurrent mixers (RG-LRU, mLSTM / sLSTM) raise `NotImplementedError`
-when a model is made.
+(`ModelConfig.scan_groups`), and a per-layer list of caches, each in its
+mixer's own dtype: bf16 attention caches, f32 recurrent states.
 
 Every entry point runs on the device its model lives on. `init_params`
 puts a model on "cuda" unless the caller asks for the CPU, and raises
@@ -23,6 +21,7 @@ from torch import nn
 
 from . import attention
 from . import moe as moe_mod
+from . import recurrent, xlstm
 from .config import ModelConfig
 from .layers import COMPUTE_DTYPE, PARAM_DTYPE, init_mlp, matmul, mlp, normal, rms_norm
 
@@ -42,14 +41,27 @@ MIXERS = {
         attention.mla_cache_shape,
         attention.mla_prefill,
     ),
-}
-
-# the slice of the port that brings each missing layer kind
-_LATER = {
-    "rglru": "the recurrent slice (recurrentgemma)",
-    "rglru_noffn": "the recurrent slice (recurrentgemma)",
-    "mlstm": "the xLSTM slice (xlstm-125m)",
-    "slstm": "the xLSTM slice (xlstm-125m)",
+    "rglru": (
+        recurrent.RGLRU,
+        recurrent.rglru,
+        recurrent.rglru_decode,
+        recurrent.rglru_cache_shape,
+        recurrent.rglru_prefill,
+    ),
+    "mlstm": (
+        xlstm.MLSTM,
+        xlstm.mlstm,
+        xlstm.mlstm_decode,
+        xlstm.mlstm_cache_shape,
+        xlstm.mlstm_prefill,
+    ),
+    "slstm": (
+        xlstm.SLSTM,
+        xlstm.slstm,
+        xlstm.slstm_decode,
+        xlstm.slstm_cache_shape,
+        xlstm.slstm_prefill,
+    ),
 }
 
 
@@ -66,15 +78,6 @@ def resolve_device(device) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    for mixer, ffn in cfg.layer_plan():
-        for kind in (mixer, ffn):
-            if kind in _LATER:
-                raise NotImplementedError(
-                    f"{cfg.name}: layer kind {kind!r} is not ported yet; it "
-                    f"comes with {_LATER[kind]}")
 
 
 # ===================================================================== #
@@ -102,7 +105,7 @@ def init_ffn(cfg: ModelConfig, device, generator=None) -> nn.ParameterDict:
 
 class Block(nn.Module):
     """One (mixer, ffn) layer: pre-norm mixer and pre-norm FFN (dense or
-    MoE), each with a residual add."""
+    MoE; "none": no norm2, no FFN), each with a residual add."""
 
     def __init__(self, cfg: ModelConfig, kind: Tuple[str, str], device,
                  generator=None):
@@ -127,7 +130,6 @@ class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        check_supported(cfg)
         self.cfg = cfg
         dev = torch.device(device)
 
@@ -263,8 +265,8 @@ def forward(model: Model, inputs) -> Tuple[torch.Tensor, torch.Tensor]:
 # serving
 # ===================================================================== #
 def cache_shapes(cfg: ModelConfig, batch: int, cache_len: int) -> List[dict]:
-    """Per layer, {name: (shape, dtype)} of its decode cache."""
-    check_supported(cfg)
+    """Per layer, {name: (shape, dtype)} of its decode cache, in the
+    mixer's own dtype."""
     return [MIXERS[mixer][3](cfg, batch, cache_len)
             for mixer, _ in cfg.layer_plan()]
 

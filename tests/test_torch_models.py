@@ -12,9 +12,20 @@ Tolerances, and why:
     only the order of the sums may differ.
   * whole-model logits (forward, prefill, decode), reference vs port:
     rtol 0.03, atol 0.03. XLA fuses the reference's compiled layer scan
-    and rounds bf16 intermediates at other places than its own eager ops
-    (the port's blocks equal the reference's eager blocks bitwise); 1-2
-    bf16 ulps of logits up to ~4 were seen at these sizes.
+    and sums in other orders than its own eager ops (the port's blocks
+    equal the reference's eager blocks bitwise); 1-2 bf16 ulps of logits
+    up to ~4 were seen at these sizes. The reference is compiled without
+    XLA's excess precision (`_jit`), which otherwise keeps some bf16
+    intermediates in f32 where its code rounds them (the SwiGLU's
+    silu(g) before the product, for one): that moved the reduced
+    recurrentgemma's logits by up to 4 bf16 ulps from the reference's
+    own eager run, and the port follows the code.
+  * the prefill caches: the bf16 attention caches end to end at the
+    same tolerance; the f32 recurrent states (RG-LRU, mLSTM, sLSTM) of
+    each layer at the same tolerance, from the reference's own input to
+    that layer. A recurrent state amplifies a single bf16 ulp of its
+    input: one flipped element of xlstm's third layer's output grew to
+    0.18 in the seventh layer's mLSTM memory (|C| <= 7.6).
   * the MoE configs' aux loss (forward), reference vs port: rtol 1e-3.
     The router sees hidden states that differ by those 1-2 bf16 ulps, so
     its probabilities differ in the fourth digit (2.4e-4 relative was
@@ -45,18 +56,20 @@ from repro_torch.models import model as M
 
 PORTED = ["qwen2-0.5b", "qwen2-72b", "granite-20b", "h2o-danube-1.8b",
           "musicgen-medium", "llava-next-34b", "deepseek-v2-lite-16b",
-          "phi3.5-moe-42b-a6.6b"]
-UNPORTED = ["xlstm-125m", "recurrentgemma-9b"]
+          "phi3.5-moe-42b-a6.6b", "recurrentgemma-9b", "xlstm-125m"]
 # reduced configs held against the reference: GQA + bias + tied
 # embeddings; ungated GELU MLP, one KV head, untied; a sliding window;
 # the embeddings frontend; MLA with a dense first layer and MoE (shared
-# experts); GQA with MoE
+# experts); GQA with MoE; RG-LRU with local MQA (f32 recurrent caches);
+# mLSTM / sLSTM with no FFN and tied embeddings
 PARITY = ["qwen2-0.5b", "granite-20b", "h2o-danube-1.8b", "musicgen-medium",
-          "deepseek-v2-lite-16b", "phi3.5-moe-42b-a6.6b"]
+          "deepseek-v2-lite-16b", "phi3.5-moe-42b-a6.6b", "recurrentgemma-9b",
+          "xlstm-125m"]
 AUX_RTOL = 1e-3
 BF16_ULP = 2.0 ** -7
 MODEL_TOL = dict(rtol=0.03, atol=0.03)
 SELF_TOL = dict(rtol=0.1, atol=0.15)
+NO_EXCESS = {"xla_allow_excess_precision": False}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -105,15 +118,6 @@ def test_param_count_matches_reference(arch):
     assert M.param_count(cfg) == ref_model.param_count(rcfg)
     assert M.active_param_count(cfg) == ref_model.active_param_count(rcfg)
     assert (M.active_param_count(cfg) < M.param_count(cfg)) == bool(cfg.n_experts)
-
-
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_layer_kinds_raise(arch):
-    cfg = configs.get(arch).reduced()
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        M.init_params(cfg, 0, "cpu")
-    with pytest.raises(NotImplementedError):
-        M.cache_shapes(cfg, 1, 8)
 
 
 @pytest.mark.parametrize("embed_dim", [0, 8])
@@ -228,6 +232,41 @@ def test_pack_kv_matches_reference(window):
 # ------------------------------------------------------------------ #
 # the model, reference vs port
 # ------------------------------------------------------------------ #
+def _jit(fn):
+    """`fn` jitted and compiled without excess precision, once for each
+    set of argument shapes."""
+    jitted, compiled = jax.jit(fn), {}
+
+    def call(*args):
+        key = tuple((a.shape, a.dtype) for a in jax.tree.leaves(args))
+        if key not in compiled:
+            compiled[key] = jitted.lower(*args).compile(compiler_options=NO_EXCESS)
+        return compiled[key](*args)
+    return call
+
+
+def _states_on_reference_inputs(rcfg, values, cfg, model, x, cache_len):
+    """Per layer whose prefill cache is f32 (a recurrent state): (the
+    reference's cache, the port's), each layer of both fed the
+    reference's own input to that layer."""
+    B, S = x.shape[:2]
+    pos = jnp.broadcast_to(jnp.arange(S, dtype=jnp.int32), (B, S))
+    h = ref_model._embed_in(values, jnp.asarray(x), rcfg)
+    blocks, out = {}, []
+    for kind, v, block in zip(rcfg.layer_plan(), convert._layer_values(rcfg, values["groups"]),
+                              model.layers):
+        if kind not in blocks:
+            blocks[kind] = _jit(lambda v, h, p, kind=kind: ref_model._apply_block(
+                v, h, p, rcfg, kind, cache_len=cache_len))
+        h_in = _t(_np(h)).to(torch.bfloat16)
+        h, _, want = blocks[kind](v, h, pos)
+        _, _, got = M._apply_block(block, h_in, M._positions(B, S, "cpu"), cfg,
+                                   cache_len=cache_len)
+        if any(t.dtype == torch.float32 for t in got.values()):
+            out.append((want, got))
+    return out
+
+
 @functools.lru_cache(maxsize=None)
 def _pair(arch):
     """(ref cfg, ref values, port cfg, port model on the CPU)."""
@@ -247,14 +286,15 @@ def _inputs(cfg, B, S, seed):
 
 @pytest.mark.parametrize("arch", PARITY)
 def test_model_matches_reference(arch):
-    """forward (S = 19), prefill (S = 16, cache 19, its caches) and three
+    """forward (S = 19), prefill (S = 16, cache 19, its caches; the f32
+    recurrent states layer by layer, see the module docstring) and three
     decode steps, reference vs port on the same weights."""
     rcfg, values, cfg, model = _pair(arch)
     B, S, n_new = 2, 16, 3
     x = _inputs(cfg, B, S + n_new, seed=3)
-    fwd = jax.jit(lambda v, t: ref_model.forward(v, t, rcfg))
-    pre = jax.jit(lambda v, t: ref_model.prefill(v, t, rcfg, S + n_new))
-    dec = jax.jit(lambda v, c, t, p: ref_model.decode_step(v, c, t, p, rcfg))
+    fwd = _jit(lambda v, t: ref_model.forward(v, t, rcfg))
+    pre = _jit(lambda v, t: ref_model.prefill(v, t, rcfg, S + n_new))
+    dec = _jit(lambda v, c, t, p: ref_model.decode_step(v, c, t, p, rcfg))
 
     want, want_aux = fwd(values, jnp.asarray(x))
     got, aux = M.forward(model, _t(x))
@@ -275,8 +315,15 @@ def test_model_matches_reference(arch):
         assert c.keys() == rc.keys()
         for name in c:
             assert c[name].shape == rc[name].shape
-            np.testing.assert_allclose(c[name].float().numpy(), _np(rc[name]),
-                                       **MODEL_TOL)
+            if c[name].dtype == torch.bfloat16:
+                np.testing.assert_allclose(c[name].float().numpy(), _np(rc[name]),
+                                           **MODEL_TOL)
+    states = _states_on_reference_inputs(rcfg, values, cfg, model, x[:, :S], S + n_new)
+    assert len(states) == sum(any(t.dtype == torch.float32 for t in c.values())
+                              for c in cache)
+    for rc, c in states:
+        for name in c:
+            np.testing.assert_allclose(c[name].float().numpy(), _np(rc[name]), **MODEL_TOL)
     for i in range(n_new):
         tok = x[:, S + i:S + i + 1]
         want, ref_cache = dec(values, ref_cache, jnp.asarray(tok), jnp.int32(S + i))
@@ -303,10 +350,13 @@ def test_prefill_decode_matches_forward(arch):
 
 
 def test_cache_shapes_match_reference():
-    """Per layer, the reference's cache shapes with each scan group's
-    stacked leading axis taken apart; the full-attention and the rolling
-    (window) buffers, and MLA's latent caches; bf16 zeros from
+    """Per layer, the reference's cache shapes and dtypes with each scan
+    group's stacked leading axis taken apart; the full-attention and the
+    rolling (window) buffers, MLA's latent caches (bf16), and the RG-LRU's
+    and xLSTM's recurrent states (f32); zeros of those dtypes from
     `init_cache`."""
+    dtypes = {jnp.dtype(jnp.bfloat16): torch.bfloat16,
+              jnp.dtype(jnp.float32): torch.float32}
     for arch in PARITY:
         rcfg, cfg = ref_configs.get(arch).reduced(), configs.get(arch).reduced()
         want = []
@@ -315,13 +365,14 @@ def test_cache_shapes_match_reference():
             for _ in range(reps):
                 for i in range(len(unit)):
                     want.append({
-                        name: tuple(shape[1:] if reps > 1 else shape)
-                        for name, (shape, _, _) in group[f"b{i}"].items()})
-        got = [{name: shape for name, (shape, _) in layer.items()}
+                        name: (tuple(shape[1:] if reps > 1 else shape),
+                               dtypes[jnp.dtype(dtype)])
+                        for name, (shape, _, dtype) in group[f"b{i}"].items()})
+        got = [{name: (shape, dtype) for name, (shape, dtype) in layer.items()}
                for layer in M.cache_shapes(cfg, 3, 40)]
         assert got == want
         cache = M.init_cache(cfg, 3, 40, "cpu")
         for c, shapes in zip(cache, got):
-            for name, shape in shapes.items():
-                assert c[name].dtype == torch.bfloat16
+            for name, (shape, dtype) in shapes.items():
+                assert c[name].dtype == dtype
                 assert tuple(c[name].shape) == shape and not c[name].any()
