@@ -12,7 +12,14 @@ Phases, in order; any failure raises and the script exits non-zero:
                kernels' (sq, gid, slot) bitwise equal — topk_l2 at both
                of the main path's shapes, Q = 64 (every streaming batch)
                and Q = 5,300 (the final pass), N = 4,096; kernel / plain /
-               library times and the bound.
+               library times and the bound. (b) the sort route of both
+               top-k kernels (k above the list route's 1,024): a
+               streaming index on the card (50,000 + 3,000 points, bf16
+               storage) answers 64 queries at k = 2,000 (launch counts
+               set to 0 just before, read just after), ids equal to the
+               brute referent; the fused traversal and both sort routes
+               must run; each call shape against the plain version,
+               bitwise, timed beside its bound.
   3. main    — the streaming constrained-kNN path at the paper's scale:
                highleyman 2-D, 500,000 points, 5,300 queries, k = 10,
                r = 5% of the bbox diagonal, ball*-tree leaf_size 32,
@@ -203,6 +210,31 @@ Phases, in order; any failure raises and the script exits non-zero:
                (e) the serve launcher (`--arch xlstm-125m --smoke
                    --retrieval`), its launch counts and the lookup's
                    dispatch kind.
+  10. train  — training on the card, launch counts set to 0 before (a)
+               and read after (d) (the path reaches no kernel):
+               (a) qwen2-0.5b at full width and depth, f32 master
+                   weights, AdamW, remat "full", batch 4 x 2,048 from
+                   `data/tokens`: 2 warm-up and 5 timed steps; losses
+                   (finite, the timed mean below the first), step
+                   seconds, tokens/s, peak memory, the share of the
+                   dense bf16 rate (`train_flops`), one step profiled;
+               (b) its first 3 layers with the tied embedding, the same
+                   f32 weights and batch (1 x 2,048) on the card and the
+                   CPU: loss, every gradient, the card's AdamW on the
+                   CPU's gradients, and every parameter's first AdamW
+                   update within the stated tolerances;
+               (c) xlstm-125m whole at examples/train_lm.py's batch
+                   (8 x 256), under deterministic algorithms: 6 steps
+                   with a checkpoint every 3, then a failure injected at
+                   step 4 and a resume whose parameters and moments equal
+                   the uninterrupted run's bitwise; the uninterrupted run
+                   continued from its step-6 checkpoint to 20 steps (one
+                   schedule for all), whose loss falls (mean of the last
+                   5 below the first 5);
+               (d) `launch/train.main --smoke` on the card for
+                   deepseek-v2-lite-16b (MLA + MoE) and recurrentgemma-9b
+                   (RG-LRU + local attention), reduced: neither fits one
+                   card for training whole.
 
 Kernel times ("ms") are CUDA-event means over back-to-back eager calls
 through the wrapper, what the port pays. For the two launch-bound
@@ -226,6 +258,10 @@ import tempfile
 import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+# before torch makes its first cuBLAS handle: a fixed workspace, so that
+# cuBLAS is deterministic where phase 10 (c) asks for deterministic
+# algorithms
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -480,6 +516,59 @@ def check_scan(dev, pts, queries, r, shapes=((64, 4096), (5300, 4096)), k=10,
             "blocks": plan["blocks"],
         }
     return out
+
+
+# phase 2 (b): the top-k kernels' sort route on the streaming path: k above
+# the list route's 1,024 (topk_l2._MAX_K), at bf16 storage k' = k + 8 in
+# the leaf kernel; a 50,000-point index (leaf_size 32) with 3,000 points
+# in its delta arena, 64 queries at half the main path's radius, whose
+# leaf frontiers stay within the fused traversal's cap of 64
+LARGE_K = 2000
+LARGE_K_POINTS = (50_000, 3_000)
+
+
+def run_large_k(dev, pts, queries, r):
+    """Phase 2 (b): a streaming index on the card answers 64 queries at k =
+    2,000 (launch counts set to 0 just before, read just after): ids equal
+    to the brute referent's; the fused traversal answers them (one leaf
+    launch a class) and both kernels take the sort route; then each call
+    shape against the plain version, bitwise, with times and bounds."""
+    from repro_torch import obs
+    from repro_torch.core import TreeSpec
+    from repro_torch.index import StreamingConfig, StreamingIndex
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import topk_l2 as tk
+
+    n_bulk, n_delta = LARGE_K_POINTS
+    rr = r / 2
+    idx = StreamingIndex(StreamingConfig(
+        dim=2, delta_capacity=4096, spec=TreeSpec.ballstar(leaf_size=32),
+        merge_factor=4, storage_dtype="bfloat16", device=dev))
+    idx.bulk_load(pts[:n_bulk])
+    idx.add(pts[n_bulk:n_bulk + n_delta])
+    q = queries[:64]
+    fused = obs.REGISTRY.counter("engine.fused_traversal", kind="used")
+    used0 = fused.value
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = idx.constrained_knn(q, LARGE_K, rr)
+    seconds = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    routes = tk.launches_by_route()
+    shapes = dict(tk.LAUNCH_SHAPES)
+    bd, bg = brute_referent(idx, q, LARGE_K, rr, dev)
+    check_referent(res, bd, bg, "large-k")
+    found = int((res.gids >= 0).sum())
+    if fused.value == used0 or any(routes[n]["sort"] == 0 for n in routes):
+        raise AssertionError(f"large-k: the fused path or a sort route was not "
+                             f"taken: {json.dumps(routes)}")
+    log(f"large-k: {n_bulk} + {n_delta} points, 64 queries, k={LARGE_K}, "
+        f"r={rr:.6f}: {seconds:.3f} s, {found} neighbors, ids == brute "
+        f"referent; launches by route {json.dumps(routes)}")
+    checked = check_serve_shapes(dev, pts, q, rr, shapes, launches, label="large-k")
+    del idx
+    return routes, checked, {"seconds": seconds, "found": found}
 
 
 # -- phase 3: the main path ------------------------------------------------------
@@ -2564,6 +2653,330 @@ def run_recurrent(dev):
     return launches, out
 
 
+# -- phase 10: training --------------------------------------------------------------
+TRAIN_ARCH = KNNLM_ARCH          # qwen2-0.5b, 494,032,768 parameters
+TRAIN_BATCH = (4, 2048)          # (a): two attention chunks of 1,024 a row
+TRAIN_WARM, TRAIN_TIMED = 2, 5   # (a): warm-up and timed steps
+TRAIN_CUT = 3                    # (b): qwen2-0.5b's first 3 layers, full width
+TRAIN_CPU_BATCH = (1, 2048)      # (b)
+# (b): card against CPU on the same weights and batch. Each gradient
+# within a relative Frobenius error of 2e-2 (plus 1e-6 of the global
+# gradient norm, for gradients that vanish): bf16 products sum in other
+# orders on each device and the backward rounds its cotangents to bf16 at
+# every cast (the CPU tests hold the port to the reference at 5e-2). Loss:
+# rtol 1e-3. The first AdamW step moves a coordinate by about ±lr by its
+# gradient's sign whatever the gradient's size, so where a gradient is at
+# the level of the rounding its sign, and the update, is the rounding's.
+# Two checks of the update, neither of which reads the card's gradient to
+# choose what it compares: (1) the card's AdamW applied to the CPU's
+# gradients equals the CPU's update within 1e-5 (relative Frobenius, every
+# coordinate of every tensor: the optimizer's arithmetic on the card);
+# (2) the card's own update within 1e-2 over the coordinates whose CPU
+# gradient is at least TRAIN_SURE of its tensor's RMS (`update_error`), in
+# every tensor but those whose gradient vanishes analytically
+# (TRAIN_VANISHING: softmax ignores a score shift common to a row's keys,
+# so the key bias's gradient is the rounding's alone). The error over all
+# coordinates is printed beside it.
+TRAIN_GRAD_RTOL, TRAIN_STEP_RTOL, TRAIN_LOSS_RTOL = 2e-2, 1e-2, 1e-3
+TRAIN_OPT_RTOL = 1e-5
+TRAIN_SURE = 0.1
+TRAIN_VANISHING = (".mixer.bk",)
+XLSTM_TRAIN = (8, 256)           # (c): examples/train_lm.py's batch and length
+XLSTM_RESUME = (6, 3, 4)         # (c): steps, checkpoint every, failure at
+XLSTM_LOSS_STEPS = 20            # (c): the loss must fall over these
+BF16_PEAK_FLOP_PER_S = PEAK_FLOP_PER_S[torch.bfloat16]
+
+
+def train_flops(cfg, batch: int, seq: int, n_params: int) -> float:
+    """A training step's work by the usual count: 6 · parameters · tokens
+    (forward 2, backward 4) plus the causal attention's score and value
+    products, 3 × the forward's 4 · B · H · S² · hd / 2 a layer (the
+    causally masked half of each diagonal chunk pair, which the packed
+    schedule computes and discards, is not counted). The recomputation of
+    remat is not counted either: the rate is the model's, not the run's."""
+    attn_layers = sum(1 for mixer, _ in cfg.layer_plan() if mixer == "attn")
+    attn = 3 * 4 * batch * cfg.n_heads * seq * seq * cfg.hd / 2 * attn_layers
+    return 6.0 * n_params * batch * seq + attn
+
+
+def rel_err(got, want, mask=None) -> float:
+    """||got − want|| / ||want|| (Frobenius), over `mask` where given."""
+    if mask is not None:
+        got, want = got[mask], want[mask]
+    ref = float(want.norm())
+    return float((got - want).norm()) / ref if ref else float((got - want).norm())
+
+
+def update_error(du, dw, gw) -> tuple:
+    """(relative Frobenius error of the update du against dw over the
+    coordinates whose CPU gradient |gw| is at least TRAIN_SURE of gw's RMS,
+    the share of such coordinates). The coordinates are chosen from the
+    CPU's side alone."""
+    sure = gw.abs() >= TRAIN_SURE * gw.square().mean().sqrt()
+    return rel_err(du, dw, sure), float(sure.float().mean())
+
+
+def _grads(model, batch):
+    from repro_torch.models import model as M
+
+    loss, _ = M.loss_fn(model, batch)
+    named = dict(model.named_parameters())
+    grads = torch.autograd.grad(loss, list(named.values()))
+    return float(loss.detach()), dict(zip(named, grads))
+
+
+def train_card_vs_cpu(cfg, dev, batch=TRAIN_CPU_BATCH) -> dict:
+    """Phase 10 (b): `cfg` (qwen2-0.5b's first layers, tied embedding) with
+    f32 masters from one seed, copied to the card; the same `batch` (B, S)
+    on both: the loss, every gradient, the card's AdamW on the CPU's
+    gradients, and every parameter's first AdamW update, card against CPU,
+    within the stated tolerances."""
+    import copy
+
+    from repro_torch.data import tokens as data_lib
+    from repro_torch.models import model as M
+    from repro_torch.train import optimizer as opt
+
+    cpu = M.init_params(cfg, torch.Generator().manual_seed(1), "cpu",
+                        param_dtype=torch.float32)
+    card = copy.deepcopy(cpu).to(dev)
+    before = {n: p.detach().clone() for n, p in cpu.named_parameters()}
+    B, S = batch
+    b = data_lib.batch_at(data_lib.DataConfig(vocab=cfg.vocab, seq=S,
+                                              global_batch=B, seed=1), 0)
+    out = {}
+    updates, grads, losses = {}, {}, {}
+    ocfg = opt.AdamWConfig(lr=6e-4, warmup_steps=1, total_steps=2)
+    for name, model, where in (("cpu", cpu, "cpu"), ("card", card, dev)):
+        model.requires_grad_(True)
+        batch = {k: torch.from_numpy(v).to(where) for k, v in b.items()}
+        t0 = time.perf_counter()
+        losses[name], grads[name] = _grads(model, batch)
+        params = dict(model.named_parameters())
+        opt.update(ocfg, grads[name], opt.init(params), params)
+        torch.cuda.synchronize()
+        out[f"{name}_s"] = time.perf_counter() - t0
+        updates[name] = {n: (p.detach().cpu() - before[n]) for n, p in params.items()}
+    # (1) the card's AdamW on the CPU's gradients, from the same weights
+    params = {n: w.to(dev, copy=True) for n, w in before.items()}
+    opt.update(ocfg, {n: g.to(dev) for n, g in grads["cpu"].items()},
+               opt.init(params), params)
+    total = float(opt.global_norm(grads["cpu"].values()))
+    worst_g, worst_o, worst_u, every, sure = {}, {}, {}, {}, {}
+    for n, w in grads["cpu"].items():
+        g = grads["card"][n].cpu()
+        err = rel_err(g, w)
+        if float((g - w).norm()) > TRAIN_GRAD_RTOL * float(w.norm()) + 1e-6 * total:
+            raise AssertionError(f"train(b): gradient of {n} differs card vs "
+                                 f"CPU by {err:.3e} (relative)")
+        worst_g[n] = err
+        worst_o[n] = rel_err(params[n].cpu() - before[n], updates["cpu"][n])
+        if not worst_o[n] <= TRAIN_OPT_RTOL:
+            raise AssertionError(f"train(b): the card's AdamW update of {n} on "
+                                 f"the CPU's gradients differs by {worst_o[n]:.3e}")
+        every[n] = rel_err(updates["card"][n], updates["cpu"][n])
+        if n.endswith(TRAIN_VANISHING):
+            continue
+        worst_u[n], sure[n] = update_error(updates["card"][n], updates["cpu"][n], w)
+        if not worst_u[n] <= TRAIN_STEP_RTOL:
+            raise AssertionError(f"train(b): the AdamW update of {n} differs "
+                                 f"card vs CPU by {worst_u[n]:.3e} (relative)")
+    lerr = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+    if not lerr <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"train(b): loss {losses['card']} on the card, "
+                             f"{losses['cpu']} on the CPU")
+    top = lambda d: dict(sorted(d.items(), key=lambda kv: -kv[1])[:3])  # noqa: E731
+    out.update(loss_card=losses["card"], loss_cpu=losses["cpu"], loss_rel_err=lerr,
+               grad_rel_err_max=max(worst_g.values()), grad_worst=top(worst_g),
+               opt_rel_err_max=max(worst_o.values()),
+               update_rel_err_max=max(worst_u.values()), update_worst=top(worst_u),
+               sure_share_min=dict(sorted(sure.items(), key=lambda kv: kv[1])[:3]),
+               update_all_coords_worst=top({n: every[n] for n in worst_u}),
+               update_all_coords_vanishing={n: e for n, e in every.items()
+                                            if n not in worst_u},
+               grad_norm=total)
+    return out
+
+
+def run_train(dev):
+    """Phase 10: training on the card (no kernel of the port is on this
+    path: the reference's flash backward is plain JAX). (a) qwen2-0.5b at
+    full width and depth, f32 masters, AdamW, remat "full"; (b) its first
+    3 layers card against CPU; (c) xlstm-125m whole, the reference
+    example's run: a failure injected and a bitwise resume, under
+    deterministic algorithms, then 20 steps whose loss falls; (d) the
+    training launcher on the reduced deepseek and recurrentgemma. The
+    launch counts are set to 0 before (a) and read after (d)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.data import tokens as data_lib
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import model as M
+    from repro_torch.train import loop as L
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import make_train_step
+
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    ops.reset_launch_counts()
+    out = {}
+    try:
+        # (a) qwen2-0.5b at full width and depth
+        cfg = configs.get(TRAIN_ARCH)
+        B, S = TRAIN_BATCH
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev,
+                              param_dtype=torch.float32).requires_grad_(True)
+        state = opt.init(dict(model.named_parameters()))
+        torch.cuda.synchronize()
+        out["init_s"] = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        if n_params != KNNLM_PARAMS or any(p.dtype != torch.float32
+                                           for p in model.parameters()):
+            raise AssertionError(f"train(a): {n_params:,} parameters, want "
+                                 f"{KNNLM_PARAMS:,} f32 masters")
+        ocfg = opt.AdamWConfig(lr=6e-4, warmup_steps=TRAIN_WARM,
+                               total_steps=TRAIN_WARM + TRAIN_TIMED + 1)
+        step = make_train_step(cfg, ocfg)
+        data = data_lib.stream(data_lib.DataConfig(vocab=cfg.vocab, seq=S,
+                                                   global_batch=B, seed=0),
+                               device=dev)
+        losses, secs = [], []
+        for _ in range(TRAIN_WARM + TRAIN_TIMED):
+            batch = next(data)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model, state, met = step(model, state, batch)
+            losses.append(float(met["loss"]))
+            secs.append(time.perf_counter() - t0)
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        timed = secs[TRAIN_WARM:]
+        step_s = float(np.mean(timed))
+        flops = train_flops(cfg, B, S, n_params)
+        out.update(params=n_params, losses=losses, step_s=timed, step_s_mean=step_s,
+                   tokens_per_s=B * S / step_s, flops=flops,
+                   bf16_rate_share=flops / step_s / BF16_PEAK_FLOP_PER_S)
+        if not (np.isfinite(losses).all()
+                and np.mean(losses[TRAIN_WARM:]) < losses[0]):
+            raise AssertionError(f"train(a): losses {losses}")
+        split = profile_pass(lambda: step(model, state, next(data)),
+                             classes=DECODE_CLASSES)
+        out["step_profile"] = {key: split[key] for key in (
+            "by_class", "pass_host_ms", "device_busy_ms", "device_idle_share",
+            "device_events", "top_events")}
+        log(f"train(a): {TRAIN_ARCH} on the card, {len(model.layers)} layers, "
+            f"{n_params:,} f32 master parameters, AdamW, remat {cfg.remat!r}, "
+            f"batch {B} x {S}: init {out['init_s']:.3f} s; losses "
+            f"{[round(x, 5) for x in losses]}; step s {[round(x, 4) for x in timed]} "
+            f"(mean {step_s:.4f}), {out['tokens_per_s']:.1f} tokens/s, peak "
+            f"{out['peak_gb']:.3f} GB; {flops:.4e} FLOP a step = "
+            f"{out['bf16_rate_share']:.4f} of the dense bf16 rate; one step "
+            f"profiled: {json.dumps(out['step_profile'])}")
+        del model, state, step, data, met
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) the first layers, card against CPU
+        cut = dataclasses.replace(cfg, n_layers=TRAIN_CUT)
+        out["card_vs_cpu"] = train_card_vs_cpu(cut, dev)
+        log(f"train(b): {TRAIN_ARCH}'s first {TRAIN_CUT} layers, tied "
+            f"embedding, batch {TRAIN_CPU_BATCH}, card vs CPU: "
+            f"{json.dumps(out['card_vs_cpu'])}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) xlstm-125m whole: failure, resume, loss
+        xcfg = configs.get(XLSTM_ARCH)
+        Bx, Sx = XLSTM_TRAIN
+        steps, every, fail = XLSTM_RESUME
+        quiet = dict(global_batch=Bx, seq=Sx, log_fn=lambda *_: None, device=dev)
+        with tempfile.TemporaryDirectory() as tmp:
+            torch.use_deterministic_algorithms(True)
+            try:
+                def loop(name, n, **kw):
+                    return L.LoopConfig(steps=n, ckpt_every=every, seed=0,
+                                        ckpt_dir=os.path.join(tmp, name),
+                                        log_every=1000, **kw)
+                # one schedule for every run: the 20-step loss run continues
+                # the uninterrupted run's checkpoint at step 6
+                ocfg = opt.AdamWConfig(lr=6e-4, warmup_steps=20,
+                                       total_steps=XLSTM_LOSS_STEPS)
+                t0 = time.perf_counter()
+                ref = L.train(xcfg, loop("ok", steps), opt_cfg=ocfg, **quiet)
+                t_ok = time.perf_counter() - t0
+                try:
+                    L.train(xcfg, loop("crash", steps, fail_at_step=fail),
+                            opt_cfg=ocfg, **quiet)
+                    raise AssertionError("train(c): the injected failure did not fire")
+                except L.InjectedFailure:
+                    pass
+                t0 = time.perf_counter()
+                res = L.train(xcfg, loop("crash", steps), opt_cfg=ocfg, **quiet)
+                t_resume = time.perf_counter() - t0
+                resumed = [h["step"] for h in res["history"]]
+                same = all(torch.equal(res["params"][n], p)
+                           and torch.equal(res["opt"]["m"][n], ref["opt"]["m"][n])
+                           and torch.equal(res["opt"]["v"][n], ref["opt"]["v"][n])
+                           for n, p in ref["params"].items())
+                if resumed != list(range(every, steps)) or not same:
+                    raise AssertionError(f"train(c): resume from step {every} not "
+                                         f"bitwise equal (steps {resumed})")
+                x_params = sum(p.numel() for p in ref["params"].values())
+                history = ref["history"]
+                del ref, res
+                t0 = time.perf_counter()
+                run = L.train(xcfg, L.LoopConfig(
+                    steps=XLSTM_LOSS_STEPS, ckpt_every=10_000, seed=0, log_every=1000,
+                    ckpt_dir=os.path.join(tmp, "ok")), opt_cfg=ocfg, **quiet)
+                t_loss = time.perf_counter() - t0
+            finally:
+                torch.use_deterministic_algorithms(False)
+        history += run["history"]
+        del run
+        if [h["step"] for h in history] != list(range(XLSTM_LOSS_STEPS)):
+            raise AssertionError(f"train(c): steps {[h['step'] for h in history]}")
+        xl = [h["loss"] for h in history]
+        if not (np.isfinite(xl).all() and np.mean(xl[-5:]) < np.mean(xl[:5])):
+            raise AssertionError(f"train(c): xlstm losses {xl}")
+        out["xlstm"] = {"params": x_params, "ok_s": t_ok, "resume_s": t_resume,
+                        "resumed_steps": resumed, "loss_run_s": t_loss,
+                        "losses": xl, "first5": float(np.mean(xl[:5])),
+                        "last5": float(np.mean(xl[-5:]))}
+        log(f"train(c): {XLSTM_ARCH} whole ({x_params:,} parameters), batch "
+            f"{Bx} x {Sx}, deterministic algorithms: {steps} steps with a "
+            f"checkpoint every {every} in {t_ok:.3f} s; failure injected at step "
+            f"{fail}, resumed steps {resumed} in {t_resume:.3f} s: parameters "
+            f"and moments bitwise equal to the uninterrupted run's; that run "
+            f"continued to {XLSTM_LOSS_STEPS} steps in {t_loss:.3f} s, loss "
+            f"{out['xlstm']['first5']:.5f} (first 5) -> {out['xlstm']['last5']:.5f} "
+            f"(last 5)")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) the launcher on the reduced MLA + MoE and RG-LRU configs
+        out["launcher"] = {}
+        for arch in (MOE_ARCH, RECUR_ARCH):
+            with tempfile.TemporaryDirectory() as tmp:
+                got = launch_train.main([
+                    "--arch", arch, "--smoke", "--steps", "4", "--global-batch", "4",
+                    "--seq", "64", "--ckpt-every", "2", "--ckpt-dir", tmp,
+                    "--device", str(dev)])
+            if not np.isfinite(got["losses"]).all():
+                raise AssertionError(f"train(d): {arch} losses {got['losses']}")
+            out["launcher"][arch] = {"losses": got["losses"], "seconds": got["seconds"]}
+        log(f"train(d): the launcher, --smoke on the card (reduced configs: "
+            f"neither fits one card for training whole): "
+            f"{json.dumps(out['launcher'])}")
+        launches = ops.launch_counts()
+        log(f"train: kernel launches over (a)-(d) {json.dumps(launches)}")
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+    return launches, out
+
+
 def main_data():
     """The main path's data: highleyman 500,000 points, 5,300 uniform
     queries, r = 5% of the bbox diagonal."""
@@ -2606,6 +3019,7 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     leaf_variants, leaf_err = check_leaf(dev, gen)
     scan = check_scan(dev, pts, queries, r)
+    big_routes, big_checked, big = run_large_k(dev, pts, queries, r)
     lap("kernels")
 
     launches, single = run_main(dev, pts, queries, r)
@@ -2648,6 +3062,11 @@ def main() -> int:
     rec_launches, rec_out = run_recurrent(dev)
     log("recurrent: summary " + json.dumps(rec_out))
     lap("recurrent")
+    gc.collect()  # phase 9's models
+    torch.cuda.empty_cache()
+    train_launches, train_out = run_train(dev)
+    log("train: summary " + json.dumps(train_out))
+    lap("train")
     log("phase seconds " + json.dumps(seconds))
 
     bf = leaf_variants["bfloat16"]
@@ -2667,7 +3086,8 @@ def main() -> int:
                                    "shapes": knn_checked["leaf_topk"],
                                    "d32_frontier_cap": knn_leaf},
                          "moe": {"launches": moe_launches["leaf_topk"]},
-                         "recurrent": {"launches": rec_launches["leaf_topk"]}},
+                         "recurrent": {"launches": rec_launches["leaf_topk"]},
+                         "train": {"launches": train_launches["leaf_topk"]}},
         },
         {
             # the final pass's shape, Q = 5,300, as in earlier runs; the
@@ -2690,9 +3110,24 @@ def main() -> int:
                 "launches": knn_launches["topk_l2"],
                 "shapes": knn_checked["topk_l2"]},
                 "moe": {"launches": moe_launches["topk_l2"]},
-                "recurrent": {"launches": rec_launches["topk_l2"]}},
+                "recurrent": {"launches": rec_launches["topk_l2"]},
+                "train": {"launches": train_launches["topk_l2"]}},
         },
     ]
+    # the sort route (k > 1,024) of both top-k kernels, on phase 2 (b)'s
+    # path (launches: its k = 2,000 query's, by route)
+    for name, replaces in (("leaf_topk", LEAF_REPLACES), ("topk_l2", SCAN_REPLACES)):
+        rows = big_checked[name]
+        m = max(rows, key=lambda row: row["launches"])
+        kernels.append({
+            "name": f"{name}_sort", "route": "cuda", "source": LEAF_SRC,
+            "replaces": replaces, "launches": big_routes[name]["sort"],
+            "max_abs_err": 0.0, "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "library_ms": m.get("library_ms"),
+            "variants": {"shapes": rows, "path": big,
+                         "list_launches": big_routes[name]["list"]},
+        })
     for name, src, replaces, res, main_key in (
         ("pairwise_sq_l2", PAIR_SRC, PAIR_REPLACES, pair, "paper"),
         ("cov_matvec", COV_SRC, COV_REPLACES, cov, "root"),
@@ -2705,7 +3140,8 @@ def main() -> int:
             "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"],
-            "variants": {**res, "recurrent": {"launches": rec_launches[name]}},
+            "variants": {**res, "recurrent": {"launches": rec_launches[name]},
+                         "train": {"launches": train_launches[name]}},
             **({"graph_ms": m["graph_ms"]} if "graph_ms" in m else {}),
         })
     print(json.dumps({"kernels": kernels}))

@@ -47,6 +47,10 @@ class DeltaBuffer:
         return int(self.points.shape[0])
 
     @property
+    def dim(self) -> int:
+        return int(self.points.shape[1])
+
+    @property
     def free(self) -> int:
         return self.capacity - self.size
 

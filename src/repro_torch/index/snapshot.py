@@ -50,5 +50,10 @@ class Snapshot:
     cache_tag: object = None    # per-index tag of the engine's cache key
 
     @property
+    def n_parts(self) -> int:
+        """Independent search partitions (segments + non-empty delta)."""
+        return len(self.segments) + (1 if self.delta_size else 0)
+
+    @property
     def dim(self) -> int:
         return int(self.delta_points.shape[1])

@@ -839,6 +839,135 @@ cudaError_t launch_leaf(const void* q, const void* cands, const void* cscale,
                 out_slot, stream);
 }
 
+
+// -- the sort route: k above the insertion list's ceiling -------------------------
+
+// Both functions, for k > kListMaxK (../topk_l2.py `_MAX_K`), where the
+// per-warp lists above no longer fit a block's shared memory. It replaces
+// no TPU kernel of its own: it is the same two functions (the reference's
+// `_leaf_kernel` and `_kernel` take any k) by another selection. One block
+// a row writes a 64-bit key per candidate, (sq bits << 32) | slot for a
+// candidate that passes the gate and ~0 for a masked one (sq >= 0, so its
+// f32 bits order as unsigned integers, and (sq, slot) is the lexicographic
+// key), sorts the row's keys ascending and keeps the first k: ties go to
+// the lower slot, as the plain versions' stable sorts (and `lax.top_k`)
+// do. The sort is a bitonic network in which every compare-exchange puts
+// the smaller key at the lower index; the keys past the row's width then
+// behave as +inf and are never touched, so the network needs the row's
+// width alone, not its next power of two. The keys live in shared memory
+// where the row fits (8 B a candidate), otherwise in a global scratch the
+// wrapper allocates (`keys`, one row of width keys a block of the launch).
+// Bound on this card: the sort's O(n log^2 n) compare-exchanges of each
+// row, against the scan's n reads; simple and right first.
+constexpr int kSortThreads = 1024;
+constexpr unsigned long long kMasked = ~0ull;
+
+struct SortArgs {
+  const float* q;
+  const void* cands;       // leaf: (R, C, D) storage; arena: p (N, D) f32
+  const float* cscale;     // leaf int8: (R, C) pow2 scales
+  const int* gids;         // leaf: (R, C); arena: (N,)
+  const float* r_sq;
+  int row0, n, D, k;       // n: the row's width (C or N)
+  unsigned long long* keys;  // global scratch, or nullptr: shared memory
+  float* out_sq;
+  int* out_gid;
+  int* out_slot;
+};
+
+template <typename T, bool kScale, bool kArena>
+__global__ void __launch_bounds__(kSortThreads)
+    topk_sort_kernel(const SortArgs a) {
+  extern __shared__ unsigned long long sort_smem[];
+  const int row = a.row0 + blockIdx.x;
+  const int n = a.n;
+  unsigned long long* keys =
+      a.keys ? a.keys + static_cast<size_t>(blockIdx.x) * n : sort_smem;
+  const float* qr = a.q + static_cast<size_t>(row) * a.D;
+  const float rs = a.r_sq[row];
+  const int* gr = kArena ? a.gids : a.gids + static_cast<size_t>(row) * n;
+  float qn = 0.f;
+  if constexpr (kArena) qn = dot_rn(qr, qr, a.D);
+  for (int j = threadIdx.x; j < n; j += kSortThreads) {
+    const int gid = gr[j];
+    float sq;
+    if constexpr (kArena) {
+      const float* pr = static_cast<const float*>(a.cands) +
+                        static_cast<size_t>(j) * a.D;
+      sq = clamp0(__fsub_rn(__fadd_rn(qn, dot_rn(pr, pr, a.D)),
+                            __fmul_rn(2.f, dot_rn(qr, pr, a.D))));
+    } else {
+      const T* cr = static_cast<const T*>(a.cands) +
+                    (static_cast<size_t>(row) * n + j) * a.D;
+      const float sc = kScale ? a.cscale[static_cast<size_t>(row) * n + j] : 1.f;
+      sq = 0.f;
+      for (int d = 0; d < a.D; ++d) {
+        float c = widen(cr[d]);
+        if (kScale) c = __fmul_rn(c, sc);  // exact: pow2 scale
+        const float t = __fsub_rn(qr[d], c);
+        sq = __fadd_rn(sq, __fmul_rn(t, t));
+      }
+    }
+    keys[j] = gid >= 0 && sq <= rs
+                  ? (static_cast<unsigned long long>(__float_as_uint(sq)) << 32) |
+                        static_cast<unsigned>(j)
+                  : kMasked;
+  }
+  __syncthreads();
+  int n2 = 1;
+  while (n2 < n) n2 <<= 1;
+  for (int len = 2; len <= n2; len <<= 1) {
+    const int half = len >> 1;
+    // the merge's first stage pairs i with its mirror in the len-block
+    for (int t = threadIdx.x; t < (n2 >> 1); t += kSortThreads) {
+      const int lo = (t / half) * len + (t % half);
+      const int hi = (lo / len) * len + len - 1 - (t % half);
+      if (hi < n && keys[hi] < keys[lo]) {
+        const unsigned long long x = keys[lo];
+        keys[lo] = keys[hi];
+        keys[hi] = x;
+      }
+    }
+    __syncthreads();
+    for (int j = half >> 1; j > 0; j >>= 1) {
+      for (int t = threadIdx.x; t < (n2 >> 1); t += kSortThreads) {
+        const int lo = (t / j) * 2 * j + (t % j);
+        const int hi = lo + j;
+        if (hi < n && keys[hi] < keys[lo]) {
+          const unsigned long long x = keys[lo];
+          keys[lo] = keys[hi];
+          keys[hi] = x;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  for (int i = threadIdx.x; i < a.k; i += kSortThreads) {
+    const unsigned long long key = i < n ? keys[i] : kMasked;
+    const size_t at = static_cast<size_t>(row) * a.k + i;
+    if (key == kMasked) {
+      a.out_sq[at] = __int_as_float(0x7f800000);
+      a.out_gid[at] = -1;
+      a.out_slot[at] = kI32Max;
+    } else {
+      const int slot = static_cast<int>(key & 0xffffffffu);
+      a.out_sq[at] = __uint_as_float(static_cast<unsigned>(key >> 32));
+      a.out_gid[at] = gr[slot];
+      a.out_slot[at] = slot;
+    }
+  }
+}
+
+template <typename T, bool kScale, bool kArena>
+cudaError_t launch_sort(const SortArgs& a, int rows, cudaStream_t stream) {
+  const size_t smem = a.keys ? 0 : static_cast<size_t>(a.n) * 8;
+  auto kernel = topk_sort_kernel<T, kScale, kArena>;
+  cudaError_t err = prepare_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<rows, kSortThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -920,6 +1049,51 @@ int topk_l2_launch(const void* q, const void* p, const void* gids,
   err = v2 ? launch_scan_vd<2>(a, ppl, blocks, s)
            : launch_scan_vd<0>(a, ppl, blocks, s);
   return static_cast<int>(err);
+}
+
+// The sort route (k > the list's ceiling) over rows [row0, row0 + rows):
+// keys is a global scratch of rows * width 64-bit words, or null to keep
+// each row's keys in shared memory (width * 8 bytes must fit a block).
+// dtype as leaf_topk_launch's.
+int leaf_topk_sort_launch(int dtype, const void* q, const void* cands,
+                          const void* cscale, const void* cgids,
+                          const void* r_sq, int row0, int rows, int C, int D,
+                          int k, void* keys, void* out_sq, void* out_gid,
+                          void* out_slot, void* stream) {
+  if (rows <= 0 || C <= 0 || D <= 0 || k <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  SortArgs a{static_cast<const float*>(q), cands,
+             static_cast<const float*>(cscale), static_cast<const int*>(cgids),
+             static_cast<const float*>(r_sq), row0, C, D, k,
+             static_cast<unsigned long long*>(keys),
+             static_cast<float*>(out_sq), static_cast<int*>(out_gid),
+             static_cast<int*>(out_slot)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return launch_sort<float, false, false>(a, rows, s);
+    case 1:
+      return launch_sort<__nv_bfloat16, false, false>(a, rows, s);
+    case 2:
+      return launch_sort<int8_t, true, false>(a, rows, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int topk_l2_sort_launch(const void* q, const void* p, const void* gids,
+                        const void* r_sq, int row0, int rows, int N, int D,
+                        int k, void* keys, void* out_sq, void* out_gid,
+                        void* out_slot, void* stream) {
+  if (rows <= 0 || N <= 0 || D <= 0 || k <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  SortArgs a{static_cast<const float*>(q), p, nullptr,
+             static_cast<const int*>(gids), static_cast<const float*>(r_sq),
+             row0, N, D, k, static_cast<unsigned long long*>(keys),
+             static_cast<float*>(out_sq), static_cast<int*>(out_gid),
+             static_cast<int*>(out_slot)};
+  return static_cast<int>(
+      launch_sort<float, false, true>(a, rows, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

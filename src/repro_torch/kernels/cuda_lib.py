@@ -190,6 +190,14 @@ def library() -> ctypes.CDLL:
                 p, p, p, p, i, i, i, i, i, i, p, p, p, p, p, p, p, p, p
             ]
             lib.topk_l2_launch.restype = i
+            lib.leaf_topk_sort_launch.argtypes = [
+                i, p, p, p, p, p, i, i, i, i, i, p, p, p, p, p
+            ]
+            lib.leaf_topk_sort_launch.restype = i
+            lib.topk_l2_sort_launch.argtypes = [
+                p, p, p, p, i, i, i, i, i, p, p, p, p, p
+            ]
+            lib.topk_l2_sort_launch.restype = i
             lib.pairwise_sq_l2_launch.argtypes = [i, i, p, p, i, i, i, p, p, p]
             lib.pairwise_sq_l2_launch.restype = i
             lib.pairwise_sq_l2_scratch_bytes.argtypes = [i, i, i, i, i]

@@ -117,6 +117,11 @@ def dequantize(leaf_q: torch.Tensor, scale=None) -> torch.Tensor:
     return out
 
 
+def itemsize_of(storage_dtype: str) -> int:
+    """Bytes a stored coordinate takes in `storage_dtype`."""
+    return torch_dtype(storage_dtype).itemsize
+
+
 __all__ = [
     "SUPPORTED",
     "check_dtype",
@@ -124,4 +129,5 @@ __all__ = [
     "dtype_name",
     "quantize_leaves",
     "dequantize",
+    "itemsize_of",
 ]

@@ -9,7 +9,11 @@ here:
     launches in `LAUNCHES` (one per leaf call; two per `topk_cuda` call:
     the |p|² pre-pass and the split scan, whose last block per query
     group merges the split k-lists — it finds itself by an atomic ticket
-    in a per-stream counter, `cuda_lib.ticket_counters`);
+    in a per-stream counter, `cuda_lib.ticket_counters`). For k above
+    `_MAX_K` both take the sort route instead (`route`): one launch of
+    `topk_sort_kernel`, a block a row sorting the row's (sq, slot) keys
+    (one launch per cut of the rows where the keys need a global
+    scratch);
   * a plain PyTorch version (`leaf_topk_plain` / `topk_plain`) that
     repeats the kernel's arithmetic operation by operation — so the two
     agree bitwise — used for CPU tensors and as the kernel's referent
@@ -66,8 +70,23 @@ def launches_by_q() -> dict:
     return dict(sorted(out.items()))
 
 
+def launches_by_route() -> dict:
+    """Both top-k kernels' device launches since the last reset, by
+    selection route (`route` of the call's k, from `LAUNCH_SHAPES`)."""
+    out = {name: {"list": 0, "sort": 0} for name in LAUNCHES}
+    for key, n in LAUNCH_SHAPES.items():
+        out[key[0]][route(key[4])] += n
+    return out
+
+
 _LEAF_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _MAX_K = 1024  # k > 32: the selection list lives in shared memory, 12 B an entry
+# k above _MAX_K: the sort route (`route`), one block a row sorting the
+# row's 8-byte keys, in shared memory up to this width, else in a global
+# scratch of at most _SORT_SCRATCH bytes a launch (rows are cut into
+# launches to fit it)
+_SORT_SMEM_WIDTH = 232_448 // 8
+_SORT_SCRATCH = 256 << 20
 _SMEM_MAX = 232_448  # shared memory a block may use on Hopper
 # warps per block, as csrc/topk_l2.cu launches them
 _LEAF_WARPS = 8
@@ -90,6 +109,12 @@ def radius_sq_upper(r: torch.Tensor) -> torch.Tensor:
 
 def _next_pow2(n: int) -> int:
     return 1 if n <= 1 else 1 << (int(n) - 1).bit_length()
+
+
+def route(k: int) -> str:
+    """The kernels' selection for k: "list" (the per-warp k-lists, k up
+    to `_MAX_K`) or "sort" (one block a row sorts its keys, any k)."""
+    return "list" if k <= _MAX_K else "sort"
 
 
 def _blocks(rows: int, per_block: int) -> int:
@@ -280,8 +305,8 @@ def leaf_topk_cuda(q, cands, cgids, r_sq, k: int, cscale=None):
         raise ValueError(f"leaf_topk: unsupported storage {cands.dtype}")
     if (code == 2) != (cscale is not None):
         raise ValueError("leaf_topk: int8 candidates need cscale, others not")
-    if not 1 <= k <= _MAX_K:
-        raise ValueError(f"leaf_topk: k={k} outside [1, {_MAX_K}]")
+    if k < 1:
+        raise ValueError(f"leaf_topk: k={k} < 1")
     _check(q, "q", torch.float32, (rows, d), device)
     _check(cands, "cands", cands.dtype, (rows, c, d), device)
     _check(cgids, "cgids", torch.int32, (rows, c), device)
@@ -291,19 +316,47 @@ def leaf_topk_cuda(q, cands, cgids, r_sq, k: int, cscale=None):
     out = _outputs(rows, k, device)
     lib = cuda_lib.library()
     index = device.index
+    scale = cscale.data_ptr() if cscale is not None else None
     with cuda_lib.on_device(index):
         stream = cuda_lib.current_stream(index)
-        err = lib.leaf_topk_launch(
-            code, q.data_ptr(), cands.data_ptr(),
-            cscale.data_ptr() if cscale is not None else None,
-            cgids.data_ptr(), r_sq.data_ptr(), rows, c, d, k,
-            *(o.data_ptr() for o in out), stream,
-        )
+        if route(k) == "list":
+            err = lib.leaf_topk_launch(
+                code, q.data_ptr(), cands.data_ptr(), scale,
+                cgids.data_ptr(), r_sq.data_ptr(), rows, c, d, k,
+                *(o.data_ptr() for o in out), stream,
+            )
+            launches = 1
+        else:
+            err, launches = _sort_launches(
+                lambda row0, n, keys: lib.leaf_topk_sort_launch(
+                    code, q.data_ptr(), cands.data_ptr(), scale,
+                    cgids.data_ptr(), r_sq.data_ptr(), row0, n, c, d, k, keys,
+                    *(o.data_ptr() for o in out), stream),
+                rows, c, device)
     cuda_lib.raise_on(err, "leaf_topk")
-    LAUNCHES["leaf_topk"] += 1
+    LAUNCHES["leaf_topk"] += launches
     key = ("leaf_topk", rows, c, d, k, str(cands.dtype).removeprefix("torch."))
-    LAUNCH_SHAPES[key] = LAUNCH_SHAPES.get(key, 0) + 1
+    LAUNCH_SHAPES[key] = LAUNCH_SHAPES.get(key, 0) + launches
     return out
+
+
+def _sort_launches(launch, rows: int, width: int, device):
+    """Run the sort route over `rows` rows of `width` candidates:
+    `launch(row0, n, keys)` launches rows [row0, row0 + n) with keys in
+    shared memory (keys None) where a row fits, else in a global scratch
+    of n · width keys, as many rows a launch as `_SORT_SCRATCH` holds.
+    Returns (the first nonzero CUDA error or 0, launches made)."""
+    if width <= _SORT_SMEM_WIDTH:
+        return launch(0, rows, None), 1
+    per = max(1, min(rows, _SORT_SCRATCH // (8 * width)))
+    keys = torch.empty(per * width, dtype=torch.int64, device=device)
+    launches = 0
+    for row0 in range(0, rows, per):
+        err = launch(row0, min(per, rows - row0), keys.data_ptr())
+        launches += 1
+        if err:
+            return err, launches
+    return 0, launches
 
 
 def _scan_smem(k: int) -> int:
@@ -336,14 +389,16 @@ def topk_cuda(q, p, gids, r_sq, k: int):
     device = p.device
     m, d = q.shape
     n = p.shape[0]
-    if not 1 <= k <= _MAX_K:
-        raise ValueError(f"topk_l2: k={k} outside [1, {_MAX_K}]")
+    if k < 1:
+        raise ValueError(f"topk_l2: k={k} < 1")
     if m == 0 or n == 0 or d == 0:
         raise ValueError(f"topk_l2: empty input Q={m} N={n} D={d}")
     _check(q, "q", torch.float32, (m, d), device)
     _check(p, "p", torch.float32, (n, d), device)
     _check(gids, "gids", torch.int32, (n,), device)
     _check(r_sq, "r_sq", torch.float32, (m,), device)
+    if route(k) == "sort":
+        return _topk_sort(q, p, gids, r_sq, k)
     ppl, split, groups, splits, pre, parts = _scan_launch(m, n, d, k)
     out = _outputs(m, k, device)
     scratch = torch.empty(pre + parts, dtype=torch.int32, device=device)
@@ -365,4 +420,28 @@ def topk_cuda(q, p, gids, r_sq, k: int):
     LAUNCHES["topk_l2"] += 2  # topk_pnorm_kernel, then topk_scan_kernel
     key = ("topk_l2", m, n, d, k)
     LAUNCH_SHAPES[key] = LAUNCH_SHAPES.get(key, 0) + 2
+    return out
+
+
+def _topk_sort(q, p, gids, r_sq, k: int):
+    """`topk_cuda` for k above the list's ceiling: the sort route, one
+    launch (or one per scratch-sized cut of the queries)."""
+    device = p.device
+    m, d = q.shape
+    n = p.shape[0]
+    out = _outputs(m, k, device)
+    lib = cuda_lib.library()
+    index = device.index
+    with cuda_lib.on_device(index):
+        stream = cuda_lib.current_stream(index)
+        err, launches = _sort_launches(
+            lambda row0, rows, keys: lib.topk_l2_sort_launch(
+                q.data_ptr(), p.data_ptr(), gids.data_ptr(), r_sq.data_ptr(),
+                row0, rows, n, d, k, keys, *(o.data_ptr() for o in out),
+                stream),
+            m, n, device)
+    cuda_lib.raise_on(err, "topk_l2")
+    LAUNCHES["topk_l2"] += launches
+    key = ("topk_l2", m, n, d, k)
+    LAUNCH_SHAPES[key] = LAUNCH_SHAPES.get(key, 0) + launches
     return out

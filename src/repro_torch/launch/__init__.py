@@ -1,3 +1,4 @@
 """Launchers of the port (the reference's `launch/`): `serve`, batched
-generation, optionally retrieval-augmented. The reference's mesh, dry-run
-and HLO tools wait for the port of training."""
+generation, optionally retrieval-augmented, and `train`, the training
+loop on one device. The reference's mesh, dry-run and HLO tools are not
+ported: they lay programs out over many TPU chips."""

@@ -1,3 +1,4 @@
 """The model stack of the port (the reference's `models/`): configs,
-layers, GQA attention with its chunked flash forward, and the dense
-decoder's forward / prefill / decode (`model`)."""
+layers, the attention, MoE and recurrent mixers, the flash forward and
+backward of chunked causal attention, and the decoder's forward, loss,
+prefill and decode (`model`)."""

@@ -29,7 +29,8 @@ from torch import nn
 
 from .config import ModelConfig
 from .flash_vjp import NEG_INF, _scan, flash_causal
-from .layers import COMPUTE_DTYPE, apply_rope, fanin, matmul, rms_norm
+from .layers import (COMPUTE_DTYPE, apply_rope, fanin, matmul, rms_norm,
+                     stored)
 
 
 # ===================================================================== #
@@ -71,7 +72,8 @@ class Attention(nn.Module):
     without one they are left empty, to be loaded (or counted, on the
     meta device)."""
 
-    def __init__(self, cfg: ModelConfig, device, generator=None):
+    def __init__(self, cfg: ModelConfig, device, generator=None,
+                 param_dtype=COMPUTE_DTYPE):
         super().__init__()
         d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd
         shapes = {
@@ -80,20 +82,22 @@ class Attention(nn.Module):
         }
         for name, (shape, fan_axis) in shapes.items():
             if generator is None:
-                t = torch.empty(shape, dtype=COMPUTE_DTYPE, device=device)
+                t = torch.empty(shape, dtype=param_dtype, device=device)
             else:
-                t = fanin(shape, generator, device, fan_axis=fan_axis)
+                t = fanin(shape, generator, device, fan_axis=fan_axis,
+                          dtype=param_dtype)
             rows = d if name != "wo" else h * hd
             self.register_parameter(
                 name, nn.Parameter(t.reshape(rows, -1), requires_grad=False))
         if cfg.qkv_bias:
             for name, heads in (("bq", h), ("bk", kv), ("bv", kv)):
-                t = torch.zeros(heads * hd, dtype=COMPUTE_DTYPE, device=device)
+                t = torch.zeros(heads * hd, dtype=param_dtype, device=device)
                 self.register_parameter(name, nn.Parameter(t, requires_grad=False))
 
 
-def init_attn(cfg: ModelConfig, device, generator=None) -> Attention:
-    return Attention(cfg, device, generator)
+def init_attn(cfg: ModelConfig, device, generator=None,
+              param_dtype=COMPUTE_DTYPE) -> Attention:
+    return Attention(cfg, device, generator, param_dtype)
 
 
 def _qkv(p: Attention, x, positions, cfg: ModelConfig):
@@ -103,9 +107,9 @@ def _qkv(p: Attention, x, positions, cfg: ModelConfig):
     k = matmul(x, p.wk).view(B, S, kv, hd)
     v = matmul(x, p.wv).view(B, S, kv, hd)
     if cfg.qkv_bias:
-        q = q + p.bq.view(h, hd)
-        k = k + p.bk.view(kv, hd)
-        v = v + p.bv.view(kv, hd)
+        q = q + p.bq.view(h, hd).to(q.dtype)
+        k = k + p.bk.view(kv, hd).to(k.dtype)
+        v = v + p.bv.view(kv, hd).to(v.dtype)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     q = q.reshape(B, S, kv, h // kv, hd)
@@ -211,7 +215,8 @@ class MLA(nn.Module):
     w_uv: the absorbed decode multiplies by the unrounded f32 w_uv (as
     the reference does), the prefill by its bf16 rounding."""
 
-    def __init__(self, cfg: ModelConfig, device, generator=None):
+    def __init__(self, cfg: ModelConfig, device, generator=None,
+                 param_dtype=COMPUTE_DTYPE):
         super().__init__()
         d, h = cfg.d_model, cfg.n_heads
         lora, qn, qr, vh = cfg.kv_lora, cfg.qk_nope, cfg.qk_rope, cfg.v_head
@@ -225,6 +230,7 @@ class MLA(nn.Module):
             "w_o": ((h, vh, d), 1, COMPUTE_DTYPE),
         }
         for name, (shape, fan_axis, dtype) in shapes.items():
+            dtype = stored(dtype, param_dtype)
             if generator is None:
                 t = torch.empty(shape, dtype=dtype, device=device)
             else:

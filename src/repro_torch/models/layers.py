@@ -18,9 +18,17 @@ Numbers follow the reference operation by operation:
   * `rms_norm` and `apply_rope` compute in f32 and round once.
 
 The reference keeps f32 parameters and casts them to bf16 inside every
-product, gather and bias add; the port casts once when the weights are
-made or loaded (`models/model.py`), which gives the same numbers. Norm
-weights stay f32.
+product, gather and bias add. For serving the port casts once, when the
+weights are made or loaded (`models/model.py`), which gives the same
+numbers; norm weights stay f32. For training it keeps f32 master weights,
+as the reference does (`Model(param_dtype=torch.float32)`): every use
+casts them to bf16 (`matmul`, the embedding gather, the bias adds), a
+cast that is a no-op on the bf16 serving weights. Each module's init
+takes that `param_dtype`, the storage type of its bf16 products'
+weights (`stored`).
+
+`cross_entropy` detaches the row max, as the reference's
+`lax.stop_gradient` does.
 """
 from __future__ import annotations
 
@@ -32,6 +40,12 @@ from torch import nn
 
 COMPUTE_DTYPE = torch.bfloat16
 PARAM_DTYPE = torch.float32
+
+
+def stored(dtype: torch.dtype, param_dtype: torch.dtype) -> torch.dtype:
+    """The storage type of a weight used in `dtype`: a bf16 product's
+    weight is kept as `param_dtype`, any other as it is used."""
+    return param_dtype if dtype == COMPUTE_DTYPE else dtype
 
 
 # --------------------------------------------------------------------- #
@@ -50,12 +64,15 @@ def fanin(shape, generator: torch.Generator, device, fan_axis: int = 0,
                   dtype=dtype)
 
 
-def register_params(module, shapes: dict, device, generator) -> None:
+def register_params(module, shapes: dict, device, generator,
+                    param_dtype=COMPUTE_DTYPE) -> None:
     """Register `shapes` on `module` as frozen parameters, in order: a
     value (shape, fan_axis, dtype) is a fan-in normal drawn from
     `generator` (left empty without one, to be loaded or counted); a
-    value (shape, None, dtype, fill) a constant."""
+    value (shape, None, dtype, fill) a constant. Each is stored as
+    `stored(dtype, param_dtype)`."""
     for name, (shape, fan_axis, dtype, *fill) in shapes.items():
+        dtype = stored(dtype, param_dtype)
         if fill:
             t = torch.full(shape, fill[0], dtype=dtype, device=device)
         elif generator is None:
@@ -100,15 +117,16 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.to(COMPUTE_DTYPE), w.to(COMPUTE_DTYPE))
 
 
-def init_mlp(d: int, f: int, gated: bool, generator, device) -> dict:
+def init_mlp(d: int, f: int, gated: bool, generator, device,
+             dtype=COMPUTE_DTYPE) -> dict:
     """The reference's `init_mlp` shapes and draws: w_up (d, f) and w_down
-    (f, d), plus w_gate (d, f) when gated; returned in the reference's key
-    order (gate, up, down)."""
+    (f, d), plus w_gate (d, f) when gated, stored as `dtype`; returned in
+    the reference's key order (gate, up, down)."""
     p = {}
     if gated:
-        p["w_gate"] = fanin((d, f), generator, device)
-    p["w_up"] = fanin((d, f), generator, device)
-    p["w_down"] = fanin((f, d), generator, device)
+        p["w_gate"] = fanin((d, f), generator, device, dtype=dtype)
+    p["w_up"] = fanin((d, f), generator, device, dtype=dtype)
+    p["w_down"] = fanin((f, d), generator, device, dtype=dtype)
     return p
 
 
@@ -130,7 +148,7 @@ def cross_entropy(
     """Stable CE in f32. logits: (B, S, V); labels: (B, S) int.
     Returns (mean, per-token nll)."""
     lf = logits.float()
-    m = lf.amax(-1, keepdim=True)
+    m = lf.amax(-1, keepdim=True).detach()
     lse = torch.log(torch.exp(lf - m).sum(-1)) + m[..., 0]
     gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
     nll = lse - gold

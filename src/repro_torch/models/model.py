@@ -11,6 +11,14 @@ mixer's own dtype: bf16 attention caches, f32 recurrent states.
 Every entry point runs on the device its model lives on. `init_params`
 puts a model on "cuda" unless the caller asks for the CPU, and raises
 where there is no card.
+
+Serving keeps bf16 products' weights in bf16. Training builds the model
+with f32 master weights (`param_dtype=torch.float32`, as the reference
+keeps every parameter), cast to bf16 at each use, and runs
+`forward(..., training=True)` / `loss_fn` with autograd on: each block
+under `torch.utils.checkpoint` when `cfg.remat == "full"` (the reference
+checkpoints its scanned groups' bodies; the numbers are the same).
+Decode and prefill stay under `no_grad`.
 """
 from __future__ import annotations
 
@@ -18,12 +26,14 @@ from typing import List, Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from . import attention
 from . import moe as moe_mod
 from . import recurrent, xlstm
 from .config import ModelConfig
-from .layers import COMPUTE_DTYPE, PARAM_DTYPE, init_mlp, matmul, mlp, normal, rms_norm
+from .layers import (COMPUTE_DTYPE, PARAM_DTYPE, cross_entropy, init_mlp,
+                     matmul, mlp, normal, rms_norm)
 
 # mixer registry: kind -> (init, apply, decode, cache_shape, prefill)
 MIXERS = {
@@ -88,16 +98,18 @@ def _vector(d: int, fill: float, device) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
-def init_ffn(cfg: ModelConfig, device, generator=None) -> nn.ParameterDict:
+def init_ffn(cfg: ModelConfig, device, generator=None,
+             param_dtype=COMPUTE_DTYPE) -> nn.ParameterDict:
     """The dense FFN's weights by the reference's names ("w_gate" when
-    gated, "w_up", "w_down"), drawn as `init_mlp` draws them, or empty."""
+    gated, "w_up", "w_down"), drawn as `init_mlp` draws them, or empty;
+    stored as `param_dtype`."""
     d, f = cfg.d_model, cfg.d_ff
     if generator is not None:
-        ws = init_mlp(d, f, cfg.mlp_gated, generator, device)
+        ws = init_mlp(d, f, cfg.mlp_gated, generator, device, param_dtype)
     else:
         names = (("w_gate",) if cfg.mlp_gated else ()) + ("w_up", "w_down")
         ws = {n: torch.empty((f, d) if n == "w_down" else (d, f),
-                             dtype=COMPUTE_DTYPE, device=device)
+                             dtype=param_dtype, device=device)
               for n in names}
     return nn.ParameterDict(
         {n: nn.Parameter(t, requires_grad=False) for n, t in ws.items()})
@@ -108,43 +120,47 @@ class Block(nn.Module):
     MoE; "none": no norm2, no FFN), each with a residual add."""
 
     def __init__(self, cfg: ModelConfig, kind: Tuple[str, str], device,
-                 generator=None):
+                 generator=None, param_dtype=COMPUTE_DTYPE):
         super().__init__()
         mixer, ffn = kind
         self.kind = kind
         self.norm1 = _vector(cfg.d_model, 1.0, device)
-        self.mixer = MIXERS[mixer][0](cfg, device, generator)
+        self.mixer = MIXERS[mixer][0](cfg, device, generator, param_dtype)
         if ffn == "dense":
             self.norm2 = _vector(cfg.d_model, 1.0, device)
-            self.ffn = init_ffn(cfg, device, generator)
+            self.ffn = init_ffn(cfg, device, generator, param_dtype)
         elif ffn == "moe":
             self.norm2 = _vector(cfg.d_model, 1.0, device)
-            self.ffn = moe_mod.MoE(cfg, device, generator)
+            self.ffn = moe_mod.MoE(cfg, device, generator, param_dtype)
 
 
 class Model(nn.Module):
     """The decoder stack's parameters, in the reference's layer order.
-    bf16 products' weights are stored bf16 (the reference casts its f32
-    parameters to bf16 at every use: the same numbers); norms stay f32."""
+    bf16 products' weights are stored as `param_dtype`: bf16 for serving
+    (the reference casts its f32 parameters to bf16 at every use: the same
+    numbers), f32 masters for training; norms and the weights of f32
+    arithmetic stay f32 either way."""
 
     def __init__(self, cfg: ModelConfig, device="cuda",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 param_dtype: torch.dtype = COMPUTE_DTYPE):
         super().__init__()
         self.cfg = cfg
         dev = torch.device(device)
 
         def table(shape, std):
             if generator is None:
-                t = torch.empty(shape, dtype=COMPUTE_DTYPE, device=dev)
+                t = torch.empty(shape, dtype=param_dtype, device=dev)
             else:
-                t = normal(shape, generator, dev, std=std)
+                t = normal(shape, generator, dev, std=std, dtype=param_dtype)
             return nn.Parameter(t, requires_grad=False)
 
         d, V = cfg.d_model, cfg.vocab
         if cfg.frontend == "tokens":
             self.embed = table((V, d), 0.02)
         self.layers = nn.ModuleList(
-            Block(cfg, kind, dev, generator) for kind in cfg.layer_plan())
+            Block(cfg, kind, dev, generator, param_dtype)
+            for kind in cfg.layer_plan())
         self.final_norm = _vector(d, 1.0, dev)
         if cfg.frontend != "tokens" or not cfg.tied_embeddings:
             self.unembed = table((d, V), d ** -0.5)
@@ -155,17 +171,18 @@ class Model(nn.Module):
 
 
 def init_params(cfg: ModelConfig, seed: Union[int, torch.Generator] = 0,
-                device="cuda") -> Model:
+                device="cuda", param_dtype: torch.dtype = COMPUTE_DTYPE) -> Model:
     """A model of `cfg` with random weights on `device`, drawn from
     `seed` (an int, or a `torch.Generator` on that device) with the
     reference's distributions and shapes (not its numbers: the reference
-    draws from `jax.random`)."""
+    draws from `jax.random`); bf16 products' weights stored as
+    `param_dtype` (`Model`)."""
     dev = resolve_device(device)
     gen = seed
     if not isinstance(seed, torch.Generator):
         gen = torch.Generator(device=dev).manual_seed(int(seed))
     with torch.no_grad():
-        return Model(cfg, dev, gen)
+        return Model(cfg, dev, gen, param_dtype)
 
 
 def param_count(cfg: ModelConfig) -> int:
@@ -228,7 +245,7 @@ def _apply_block(block: Block, h, positions, cfg: ModelConfig, cache=None,
 
 def _embed_in(model: Model, inputs):
     if model.cfg.frontend == "tokens":
-        return model.embed[inputs.to(model.device).long()]
+        return model.embed[inputs.to(model.device).long()].to(COMPUTE_DTYPE)
     return inputs.to(model.device).to(COMPUTE_DTYPE)
 
 
@@ -244,21 +261,44 @@ def _positions(B: int, S: int, device):
     return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
 
 
-@torch.no_grad()
-def forward(model: Model, inputs) -> Tuple[torch.Tensor, torch.Tensor]:
+def forward(model: Model, inputs, training: bool = False
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """inputs: (B, S) int tokens or (B, S, d) embeddings. Returns
     (logits (B, S, vocab) bf16, the MoE layers' aux loss summed in f32 —
-    0 for a dense config)."""
+    0 for a dense config). Without `training` it runs under `no_grad`;
+    with it autograd records it, each block checkpointed when
+    `cfg.remat == "full"`."""
+    if not training:
+        with torch.no_grad():
+            return _forward(model, inputs, False)
+    return _forward(model, inputs, model.cfg.remat == "full")
+
+
+def _forward(model: Model, inputs, remat: bool):
     cfg = model.cfg
     B, S = inputs.shape[:2]
     positions = _positions(B, S, model.device)
     h = _embed_in(model, inputs)
     aux = torch.zeros((), dtype=torch.float32, device=model.device)
     for block in model.layers:
-        h, block_aux, _ = _apply_block(block, h, positions, cfg)
+        if remat:
+            h, block_aux, _ = checkpoint(_apply_block, block, h, positions,
+                                         cfg, use_reentrant=False)
+        else:
+            h, block_aux, _ = _apply_block(block, h, positions, cfg)
         if block_aux is not None:
             aux = aux + block_aux
     return _logits_out(model, h), aux
+
+
+def loss_fn(model: Model, batch: dict):
+    """Next-token CE of batch {"inputs": (B, S[, d]), "labels": (B, S)}
+    (logits[:, :-1] against labels[:, 1:]) plus the MoE aux loss. Returns
+    (loss, {"ce", "aux"}), f32 scalars."""
+    logits, aux = forward(model, batch["inputs"], training=True)
+    labels = batch["labels"].to(logits.device)
+    ce, _ = cross_entropy(logits[:, :-1], labels[:, 1:])
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 # ===================================================================== #

@@ -39,7 +39,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from .config import ModelConfig
-from .layers import COMPUTE_DTYPE, PARAM_DTYPE, fanin, init_mlp, matmul, mlp
+from .layers import (COMPUTE_DTYPE, PARAM_DTYPE, fanin, init_mlp, matmul,
+                     mlp, stored)
 
 
 class MoE(nn.Module):
@@ -52,7 +53,8 @@ class MoE(nn.Module):
     Called as `moe(x, cfg)`, through the module, so that a forward hook
     can observe the routing's input (`routing_trace`)."""
 
-    def __init__(self, cfg: ModelConfig, device, generator=None):
+    def __init__(self, cfg: ModelConfig, device, generator=None,
+                 param_dtype=COMPUTE_DTYPE):
         super().__init__()
         d, fe, e = cfg.d_model, cfg.d_expert, cfg.n_experts
         shapes = {
@@ -62,6 +64,7 @@ class MoE(nn.Module):
             "w_down": ((e, fe, d), 1, COMPUTE_DTYPE),
         }
         for name, (shape, fan_axis, dtype) in shapes.items():
+            dtype = stored(dtype, param_dtype)
             if generator is None:
                 t = torch.empty(shape, dtype=dtype, device=device)
             else:
@@ -70,10 +73,10 @@ class MoE(nn.Module):
         if cfg.n_shared:
             f = cfg.n_shared * fe
             if generator is not None:
-                ws = init_mlp(d, f, True, generator, device)
+                ws = init_mlp(d, f, True, generator, device, param_dtype)
             else:
                 ws = {n: torch.empty((f, d) if n == "w_down" else (d, f),
-                                     dtype=COMPUTE_DTYPE, device=device)
+                                     dtype=param_dtype, device=device)
                       for n in ("w_gate", "w_up", "w_down")}
             self.shared = nn.ParameterDict(
                 {n: nn.Parameter(t, requires_grad=False) for n, t in ws.items()})

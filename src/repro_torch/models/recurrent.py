@@ -36,7 +36,8 @@ class RGLRU(nn.Module):
     without one they are left empty, to be loaded. The biases are zeros
     and lam its fixed init either way."""
 
-    def __init__(self, cfg: ModelConfig, device, generator=None):
+    def __init__(self, cfg: ModelConfig, device, generator=None,
+                 param_dtype=COMPUTE_DTYPE):
         super().__init__()
         d, dr, cw = cfg.d_model, cfg.d_rnn or cfg.d_model, cfg.conv_width
         nh = cfg.n_heads
@@ -53,7 +54,7 @@ class RGLRU(nn.Module):
             "b_i": ((dr,), None, f32, 0.0),
             "lam": ((dr,), None, f32, 0.0),
             "w_out": ((dr, d), 0, COMPUTE_DTYPE),
-        }, device, generator)
+        }, device, generator, param_dtype)
         if self.lam.device.type != "meta":
             # a = sigmoid(lam)^c lands in [0.9, 0.999] (Griffin A.2)
             lam = torch.log(torch.linspace(0.9, 0.999, dr, dtype=f32) ** (1.0 / RG_LRU_C))

@@ -43,7 +43,8 @@ class MLSTM(nn.Module):
     2·di), wq, wk, wv (di, di), w_down (di, d) bf16; w_i, w_f (di, nh),
     b_i, b_f (nh,) and norm (di,) f32 (di = 2·d)."""
 
-    def __init__(self, cfg: ModelConfig, device, generator=None):
+    def __init__(self, cfg: ModelConfig, device, generator=None,
+                 param_dtype=COMPUTE_DTYPE):
         super().__init__()
         d, nh = cfg.d_model, cfg.n_heads
         di = MLSTM_PF * d
@@ -59,7 +60,7 @@ class MLSTM(nn.Module):
             "b_f": ((nh,), None, f32, 0.0),
             "norm": ((di,), None, f32, 1.0),
             "w_down": ((di, d), 0, bf16),
-        }, device, generator)
+        }, device, generator, param_dtype)
 
 
 def _mlstm_qkvif(p: MLSTM, x, cfg: ModelConfig):
@@ -198,7 +199,8 @@ class SLSTM(nn.Module):
     in (z, i, f, o) w_g (d, d), r_g (nh, dh, dh) and b_g (d,), f32; the
     gated post-FFN's w_ffn1 (d, 2·f2) and w_ffn2 (f2, d), bf16."""
 
-    def __init__(self, cfg: ModelConfig, device, generator=None):
+    def __init__(self, cfg: ModelConfig, device, generator=None,
+                 param_dtype=COMPUTE_DTYPE):
         super().__init__()
         d, nh = cfg.d_model, cfg.n_heads
         dh = d // nh
@@ -211,7 +213,7 @@ class SLSTM(nn.Module):
             shapes[f"b_{g}"] = ((d,), None, f32, 0.0)
         shapes["w_ffn1"] = ((d, 2 * f2), 0, COMPUTE_DTYPE)
         shapes["w_ffn2"] = ((f2, d), 0, COMPUTE_DTYPE)
-        register_params(self, shapes, device, generator)
+        register_params(self, shapes, device, generator, param_dtype)
 
 
 def _slstm_preact(p: SLSTM, x):

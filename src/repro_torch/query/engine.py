@@ -59,12 +59,26 @@ _C_FUSED_FB = obs.REGISTRY.counter(
 )
 _C_STACK_FULL = obs.REGISTRY.counter("engine.stack_cache", kind="full_build")
 _C_STACK_INCR = obs.REGISTRY.counter("engine.stack_cache", kind="incremental")
+_G_SIGNATURES = obs.REGISTRY.gauge("engine.signatures")
 _G_STACK_CACHE = obs.REGISTRY.gauge("engine.stack_cache_entries")
+
+# distinct stacked-dispatch signatures ever issued, (shape class, pow2
+# member count, query count, k, dtype); the registry holds their count
+# (`engine.signatures`), the set itself its own lock. dtype is the
+# port's own spelling (`str(torch.float32)`, "torch.float32"), not JAX's
+_SIGNATURES: set = set()
+_SIG_LOCK = threading.Lock()
 
 
 def dispatch_count() -> int:
     """ALL device search dispatches (traversal + delta)."""
     return _C_TRAVERSAL.value + _C_DELTA.value
+
+
+def observed_signatures() -> frozenset:
+    """The stacked-dispatch signatures issued so far (see `_SIGNATURES`)."""
+    with _SIG_LOCK:
+        return frozenset(_SIGNATURES)
 
 
 def compile_stats() -> dict:
@@ -114,6 +128,15 @@ def plan(snapshot) -> List[ClassGroup]:
 _STACK_CACHE: "collections.OrderedDict" = collections.OrderedDict()
 _STACK_CACHE_MAX = 16
 _STACK_LOCK = threading.Lock()
+
+
+def stack_stats() -> dict:
+    """The stacked-batch cache's refreshes: whole class batches rebuilt
+    against single member slots patched."""
+    return {
+        "full_builds": _C_STACK_FULL.value,
+        "incremental_updates": _C_STACK_INCR.value,
+    }
 
 
 class _StackEntry(NamedTuple):
@@ -254,6 +277,11 @@ def _dispatch_stacked(
     qerr: float = 0.0,
 ):
     _C_TRAVERSAL.inc()
+    with _SIG_LOCK:
+        _SIGNATURES.add(
+            (cls, int(gids.shape[0]), int(q.shape[0]), k, str(q.dtype))
+        )
+        _G_SIGNATURES.set(len(_SIGNATURES))
     with obs.span("engine.dispatch"):
         # the fused path computes in f32 (its kernel's type); any other
         # traversal dtype (search_tree overrides) takes the classic loop.

@@ -616,3 +616,99 @@ def test_moe_model_on_the_card_matches_the_cpu(dev):
         assert n == wn and d == wd and torch.equal(e, we)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.float().cpu().numpy(), w.float().numpy(), **tol)
+
+
+# -- the top-k kernels' sort route (k above the list route's 1,024) ---------------
+@pytest.mark.parametrize("sdt", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("rows,c,k", [(9, 1200, 1025), (9, 1600, 1500),
+                                      (5, 3000, 4096), (3, 40000, 1500)])
+def test_leaf_kernel_sort_route_equals_plain(dev, sdt, rows, c, k):
+    """k' = 1,025 is a bf16 query's k = 1,017 plus the slack of 8; k =
+    4,096 above C pads; C = 40,000 keys do not fit shared memory and
+    take the global scratch."""
+    assert tk.route(k) == "sort"
+    args, cscale = _leaf_case(sdt, rows=rows, c=c, seed=k)
+    want = tk.leaf_topk_plain(*args, k, cscale=cscale)
+    before = tk.LAUNCHES["leaf_topk"]
+    got = tk.leaf_topk_cuda(
+        *[a.to(dev) for a in args], k,
+        cscale=None if cscale is None else cscale.to(dev),
+    )
+    assert tk.LAUNCHES["leaf_topk"] == before + 1
+    for x, y in zip(got, want):
+        assert torch.equal(x.cpu(), y)
+    assert (want[1] >= 0).sum() > 0
+
+
+@pytest.mark.parametrize("n,d", [(5000, 2), (40000, 5)])
+@pytest.mark.parametrize("k", [1025, 1500, 4096])
+def test_topk_kernel_sort_route_equals_plain(dev, n, d, k):
+    rng = np.random.default_rng(n + k)
+    q = torch.from_numpy(rng.standard_normal((37, d)).astype(np.float32))
+    p = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+    g = np.where(rng.random(n) < 0.2, -1, np.arange(n)).astype(np.int32)
+    g = torch.from_numpy(g)
+    r_sq = tk.radius_sq_upper(torch.full((37,), 2.5))
+    want = tk.topk_plain(q, p, g, r_sq, k)
+    before = tk.LAUNCHES["topk_l2"]
+    got = tk.topk_cuda(q.to(dev), p.to(dev), g.to(dev), r_sq.to(dev), k)
+    assert tk.LAUNCHES["topk_l2"] == before + 1
+    for x, y in zip(got, want):
+        assert torch.equal(x.cpu(), y)
+
+
+def test_streaming_query_large_k_card_equals_cpu(dev):
+    """k = 2,000 through the streaming index: the fused traversal's leaf
+    launch at bf16 k' = 2,008 and the delta arena's scan both take the
+    sort route on the card, and the answer equals the CPU's."""
+    from repro_torch.core import TreeSpec
+    from repro_torch.data.synthetic import highleyman, uniform_queries
+    from repro_torch.index import StreamingConfig, StreamingIndex
+
+    pts = highleyman(53_000, seed=0)
+    queries = uniform_queries(pts, 64, seed=1)
+    r = 0.03 * float(np.linalg.norm(pts.max(0) - pts.min(0)))
+    out = []
+    for device in ("cpu", dev):
+        idx = StreamingIndex(StreamingConfig(
+            dim=2, delta_capacity=4096, spec=TreeSpec.ballstar(leaf_size=32),
+            merge_factor=4, storage_dtype="bfloat16", device=device))
+        idx.bulk_load(pts[:50_000])
+        idx.add(pts[50_000:])
+        ops.reset_launch_counts()
+        out.append(idx.constrained_knn(queries, 2000, r))
+    routes = tk.launches_by_route()
+    assert routes["leaf_topk"]["sort"] >= 1 and routes["topk_l2"]["sort"] >= 1
+    cpu, card = out
+    np.testing.assert_array_equal(card.gids, cpu.gids)
+    np.testing.assert_allclose(card.distances, cpu.distances, rtol=1e-6)
+    assert (cpu.gids >= 0).sum() > 0
+
+
+def test_train_step_on_the_card_matches_the_cpu(dev):
+    """One training step of the reduced qwen2-0.5b (q/k/v biases and a
+    tied embedding), card against CPU on the same f32 weights and a batch
+    of 2 x 48 tokens, through chip_smoke's phase 10 (b) check: the loss
+    within rtol 1e-3, each gradient within a relative Frobenius error of
+    2e-2 (plus 1e-6 of the global norm), the card's AdamW on the CPU's
+    gradients within 1e-5, and each parameter's first update within 1e-2
+    over the coordinates whose CPU gradient is at least a tenth of its
+    tensor's RMS (the tolerances and their reasons: chip_smoke, where
+    `TRAIN_GRAD_RTOL` is set)."""
+    import importlib.util
+    import pathlib
+
+    from repro_torch import configs
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        out = smoke.train_card_vs_cpu(configs.get("qwen2-0.5b").reduced(), dev,
+                                      batch=(2, 48))
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+    assert out["opt_rel_err_max"] <= 1e-5 and out["update_rel_err_max"] <= 1e-2
