@@ -235,6 +235,30 @@ Phases, in order; any failure raises and the script exits non-zero:
                    deepseek-v2-lite-16b (MLA + MoE) and recurrentgemma-9b
                    (RG-LRU + local attention), reduced: neither fits one
                    card for training whole.
+                   (a)'s last step runs alone under
+                   `reset_peak_memory_stats()`: its peak is phase 11's
+                   referent.
+  11. accounting — the accounting tier (`kernels/autotune`, `obs/export`,
+               `launch/dryrun`):
+               (a) topk_l2 at phase 2's shapes (Q = 64 and 5,300, N =
+                   4,096, k = 10) under the autotuner's three best-ranked
+                   splits and today's `scan_geometry` split: bitwise equal
+                   to the plain version, eager and graph ms beside the
+                   model's prediction; the tuned split at most 10% slower
+                   than today's, or today's;
+               (b) (run at the end of phase 3, before its profiled pass)
+                   `obs.export.to_payload()`: its autotune keys and its
+                   quantized section, whose bf16 record shows a reduction
+                   factor of 2.0 and both rescore outcomes; `dump_json`
+                   read back equal;
+               (c) `launch/dryrun.run_cell` of phase 10's cell (qwen2-0.5b,
+                   train 4 x 2,048, remat "full", AdamW) on meta tensors:
+                   its counted peak within 10% of the last step's
+                   `max_memory_allocated()`, its product FLOPs 1.0-1.5x
+                   `train_flops`, both ratios printed; then the decode_32k
+                   cell of qwen2-0.5b, deepseek-v2-lite-16b,
+                   recurrentgemma-9b and xlstm-125m at the published size,
+                   one line each.
 
 Kernel times ("ms") are CUDA-event means over back-to-back eager calls
 through the wrapper, what the port pays. For the two launch-bound
@@ -266,18 +290,23 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet, dense): device memory 3.35 TB/s; f32
-# outside the tensor cores 67 TFLOP/s; bf16 on the tensor cores with f32
-# sums 989 TFLOP/s; TF32 495 TFLOP/s — the rates the bounds below divide
-# by. A bf16 × bf16 product is exact in f32, so the tensor cores compute
-# the same function where both operands are bf16. An f32 × f32 matrix
-# product computed to f32 accuracy has a faster route than the CUDA cores:
-# three TF32 products per term (the 3xTF32 split), at 495 / 3 = 165
-# TFLOP/s ("f32_product"); it applies to pairwise_sq_l2's operations only,
-# the one matrix product here. Any other f32 operand takes the f32 rate.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOP_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12,
-                   "f32_product": 495e12 / 3}
+# H100 SXM peaks: the package's envelope, `kernels/autotune` (NVIDIA's data
+# sheet, dense): device memory 3.35 TB/s; f32 outside the tensor cores 67
+# TFLOP/s; bf16 on the tensor cores with f32 sums 989 TFLOP/s; TF32 495
+# TFLOP/s — the rates the bounds below divide by. A bf16 × bf16 product is
+# exact in f32, so the tensor cores compute the same function where both
+# operands are bf16. An f32 × f32 matrix product computed to f32 accuracy
+# has a faster route than the CUDA cores: three TF32 products per term
+# (the 3xTF32 split), at 495 / 3 = 165 TFLOP/s ("f32_product"); it applies
+# to pairwise_sq_l2's operations only, the one matrix product here. Any
+# other f32 operand takes the f32 rate. Read where used, not at import,
+# so that a tool can point `repro_torch` at another source tree first.
+def envelope() -> tuple:
+    """(device memory bytes/s, peak operations/s by operand type)."""
+    from repro_torch.kernels import autotune
+
+    return autotune.HBM_BW, autotune.PEAK_FLOPS
+
 
 LEAF_SRC = "src/repro_torch/kernels/csrc/topk_l2.cu"
 LEAF_REPLACES = "src/repro/kernels/topk_l2.py:459"   # _leaf_kernel
@@ -377,8 +406,9 @@ def _bound(plan, operands=torch.float32) -> tuple:
     operand of a product is bf16; "f32_product" for the f32 matrix
     product of pairwise_sq_l2, which three TF32 products per term
     compute to f32 accuracy at a third of the TF32 rate)."""
-    t_bytes = plan["hbm_bytes"] / HBM_BYTES_PER_S
-    t_ops = plan["flops"] / PEAK_FLOP_PER_S[operands]
+    hbm, peak = envelope()
+    t_bytes = plan["hbm_bytes"] / hbm
+    t_ops = plan["flops"] / peak[operands]
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -876,6 +906,7 @@ def run_main(dev, pts, queries, r):
         raise AssertionError(f"a kernel of the path never launched: {launches}")
     if fused_used <= 0:
         raise AssertionError("the fused traversal never ran")
+    exported = check_export()
 
     # phase split of the same pass, from a profiler trace of it
     obs.REGISTRY.reset()
@@ -911,7 +942,33 @@ def run_main(dev, pts, queries, r):
                                            "tiered_merges", "purge_merges")},
     }
     log("main: summary " + json.dumps(summary))
-    return launches, idx
+    return launches, idx, exported
+
+
+def check_export() -> dict:
+    """Phase 11 (b), run at the end of phase 3 before its profiled pass
+    resets the registry: `obs.export.to_payload()` of the streaming run —
+    its `autotune` decisions and its `quantized` section, whose bf16
+    record must show the stream halved (reduction factor 2.0) and both
+    rescore outcomes (phase 3 streams bf16 and falls back to f32) — and
+    the payload written by `dump_json` and read back equal."""
+    from repro_torch.obs import export
+
+    payload = json.loads(json.dumps(export.to_payload()))
+    with tempfile.TemporaryDirectory() as tmp:
+        back = export.load_json(export.dump_json(os.path.join(tmp, "BENCH_obs.json")))
+    payload.pop("generated_unix")
+    back.pop("generated_unix")
+    if back != payload:
+        raise AssertionError("accounting(b): the payload read back differs")
+    bf = payload["quantized"].get("bfloat16")
+    if (bf is None or bf["reduction_factor"] != 2.0 or bf["rescore_exact"] <= 0
+            or bf["rescore_fallback"] <= 0):
+        raise AssertionError(f"accounting(b): quantized section {payload['quantized']}")
+    log(f"accounting(b): obs payload of phase 3: autotune keys "
+        f"{sorted(payload['autotune'])}; quantized {json.dumps(payload['quantized'])}; "
+        f"dump_json / load_json round trip equal")
+    return {"autotune": payload["autotune"], "quantized": payload["quantized"]}
 
 
 # -- phase 6: the distributed index ----------------------------------------------
@@ -2033,8 +2090,9 @@ def pass_bound(model, tokens: int) -> tuple:
         G = moe.n_groups(cfg, tokens)
         C = moe.capacity(cfg, tokens // G)
         ops += n_moe * 2 * 3 * cfg.n_experts * G * C * cfg.d_model * cfg.d_expert
-    t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = ops / PEAK_FLOP_PER_S[torch.bfloat16]
+    hbm, peak = envelope()
+    t_bytes = n_bytes / hbm
+    t_ops = ops / peak[torch.bfloat16]
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -2684,7 +2742,6 @@ TRAIN_VANISHING = (".mixer.bk",)
 XLSTM_TRAIN = (8, 256)           # (c): examples/train_lm.py's batch and length
 XLSTM_RESUME = (6, 3, 4)         # (c): steps, checkpoint every, failure at
 XLSTM_LOSS_STEPS = 20            # (c): the loss must fall over these
-BF16_PEAK_FLOP_PER_S = PEAK_FLOP_PER_S[torch.bfloat16]
 
 
 def train_flops(cfg, batch: int, seq: int, n_params: int) -> float:
@@ -2845,20 +2902,26 @@ def run_train(dev):
                                                    global_batch=B, seed=0),
                                device=dev)
         losses, secs = [], []
-        for _ in range(TRAIN_WARM + TRAIN_TIMED):
+        for i in range(TRAIN_WARM + TRAIN_TIMED):
             batch = next(data)
             torch.cuda.synchronize()
+            if i == TRAIN_WARM + TRAIN_TIMED - 1:
+                # the last step's own peak, which phase 11 (c) holds the
+                # dry run's count against
+                peak = torch.cuda.max_memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             model, state, met = step(model, state, batch)
             losses.append(float(met["loss"]))
             secs.append(time.perf_counter() - t0)
-        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["step_peak_bytes"] = torch.cuda.max_memory_allocated()
+        out["peak_gb"] = max(peak, out["step_peak_bytes"]) / 1e9
         timed = secs[TRAIN_WARM:]
         step_s = float(np.mean(timed))
         flops = train_flops(cfg, B, S, n_params)
         out.update(params=n_params, losses=losses, step_s=timed, step_s_mean=step_s,
                    tokens_per_s=B * S / step_s, flops=flops,
-                   bf16_rate_share=flops / step_s / BF16_PEAK_FLOP_PER_S)
+                   bf16_rate_share=flops / step_s / envelope()[1][torch.bfloat16])
         if not (np.isfinite(losses).all()
                 and np.mean(losses[TRAIN_WARM:]) < losses[0]):
             raise AssertionError(f"train(a): losses {losses}")
@@ -2872,7 +2935,8 @@ def run_train(dev):
             f"batch {B} x {S}: init {out['init_s']:.3f} s; losses "
             f"{[round(x, 5) for x in losses]}; step s {[round(x, 4) for x in timed]} "
             f"(mean {step_s:.4f}), {out['tokens_per_s']:.1f} tokens/s, peak "
-            f"{out['peak_gb']:.3f} GB; {flops:.4e} FLOP a step = "
+            f"{out['peak_gb']:.3f} GB (the last step's own "
+            f"{out['step_peak_bytes'] / 1e9:.3f} GB); {flops:.4e} FLOP a step = "
             f"{out['bf16_rate_share']:.4f} of the dense bf16 rate; one step "
             f"profiled: {json.dumps(out['step_profile'])}")
         del model, state, step, data, met
@@ -2977,6 +3041,107 @@ def run_train(dev):
     return launches, out
 
 
+# -- phase 11: accounting ---------------------------------------------------------
+ACCOUNT_DECODE = ("decode_32k", (TRAIN_ARCH, MOE_ARCH, RECUR_ARCH, XLSTM_ARCH))
+TUNED_SLOWER = 1.10  # the tuned split may be at most this much slower than today's
+
+
+def check_tuned_scan(dev, pts, queries, r, shapes=((64, 4096), (5300, 4096)), k=10):
+    """Phase 11 (a): topk_l2 at the main path's shapes under the
+    autotuner's three best-ranked splits and today's `scan_geometry`
+    split: each (sq, gid, slot) bitwise equal to the plain version, eager
+    and graph-replayed ms beside the model's prediction; the tuned split
+    no more than 10% slower than today's, or today's itself."""
+    from repro_torch.kernels import autotune as at
+    from repro_torch.kernels import topk_l2 as tk
+
+    out = {}
+    for nq, n in shapes:
+        q = torch.from_numpy(queries[:nq].astype(np.float32)).to(dev)
+        p = torch.from_numpy(pts[:n].astype(np.float32)).to(dev)
+        gids = torch.arange(n, device=dev, dtype=torch.int32)
+        gids[::7] = -1  # tombstoned arena slots, as phase 2
+        r_sq = tk.radius_sq_upper(torch.full((nq,), r, device=dev))
+        want = tk.topk_plain(q, p, gids, r_sq, k)
+        ranked = at.ranked("topk_l2", nq, n, 2, k)
+        tuned = at.choose_plan("topk_l2", nq, n, 2, k, backend="cuda")
+        today = tk.scan_geometry(nq, n, k)["split"]
+        picks = ranked[:3] + [x for x in ranked[3:] if x["bn"] in (today, tuned["bn"])]
+        rows = {}
+        for plan in picks:
+            bn = plan["bn"]
+            got = tk.topk_cuda(q, p, gids, r_sq, k, split=bn)
+            torch.cuda.synchronize()
+            for what, x, y in zip(("sq", "gid", "slot"), got, want):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"accounting(a): topk_l2 Q={nq} split {bn} "
+                                         f"{what} differs from the plain version")
+
+            def kernel(bn=bn):
+                return tk.topk_cuda(q, p, gids, r_sq, k, split=bn)
+
+            rows[bn] = {"rank": ranked.index(plan), "blocks": plan["blocks"],
+                        "pred_us": plan["score"] * 1e6, "ms": time_ms(kernel, reps=20),
+                        "graph_ms": time_graph_ms(kernel), "today": bn == today,
+                        "tuned": bn == tuned["bn"]}
+            log(f"accounting(a): topk_l2 Q={nq} N={n} k={k} split {bn} "
+                f"(rank {rows[bn]['rank']}{', today' if bn == today else ''}"
+                f"{', tuned' if bn == tuned['bn'] else ''}): blocks {plan['blocks']}, "
+                f"pred {rows[bn]['pred_us']:.3f} us, eager {rows[bn]['ms']:.5f} ms, "
+                f"graph {rows[bn]['graph_ms']:.5f} ms; bitwise equal to the plain version")
+        t, d = rows[tuned["bn"]], rows[today]
+        if tuned["bn"] != today and (t["ms"] > TUNED_SLOWER * d["ms"]
+                                     or t["graph_ms"] > TUNED_SLOWER * d["graph_ms"]):
+            raise AssertionError(f"accounting(a): Q={nq}: tuned split {tuned['bn']} "
+                                 f"{t} slower than today's {today} {d}")
+        out[f"q{nq}"] = {"tuned_split": tuned["bn"], "today_split": today,
+                         "candidates": len(ranked), "splits": rows}
+    return out
+
+
+def run_accounting(dev, pts, queries, r, train_out):
+    """Phase 11: (a) the tuned topk_l2 split at the main path's shapes;
+    (c) the dry run (`launch/dryrun.run_cell`) of phase 10's cell —
+    qwen2-0.5b training at 4 x 2,048, remat "full", AdamW — held against
+    that step on the card: its counted peak against the last step's
+    `max_memory_allocated()` (within 10%), its product FLOPs against
+    `train_flops` (1.0–1.5x: remat's second forward and the diagonal
+    chunk pairs' masked halves are counted); then one decode_32k cell of
+    each family at its published size. (b) ran at the end of phase 3."""
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.launch import dryrun
+
+    out = {"scan": check_tuned_scan(dev, pts, queries, r)}
+    B, S = TRAIN_BATCH
+    rec = dryrun.run_cell(TRAIN_ARCH, Shape("train_phase10", "train", S, B), "single")
+    peak_ratio = rec["peak_bytes"] / train_out["step_peak_bytes"]
+    flop_ratio = rec["product_flops_per_device"] / train_out["flops"]
+    out["train_cell"] = {"record": rec, "measured_peak_bytes": train_out["step_peak_bytes"],
+                         "peak_ratio": peak_ratio, "train_flops": train_out["flops"],
+                         "product_flop_ratio": flop_ratio}
+    log(f"accounting(c): {dryrun.summary(rec)}")
+    log(f"accounting(c): {TRAIN_ARCH} train {B} x {S}: counted peak "
+        f"{rec['peak_bytes']:,} B / the step's max_memory_allocated "
+        f"{train_out['step_peak_bytes']:,} B = {peak_ratio:.4f}; product FLOPs "
+        f"{rec['product_flops_per_device']:.4e} / train_flops "
+        f"{train_out['flops']:.4e} = {flop_ratio:.4f}")
+    if abs(peak_ratio - 1.0) > 0.10 or not 1.0 <= flop_ratio <= 1.5:
+        raise AssertionError(f"accounting(c): peak ratio {peak_ratio}, FLOP ratio "
+                             f"{flop_ratio}")
+    shape, archs = ACCOUNT_DECODE
+    out["decode"] = {}
+    for arch in archs:
+        rec = dryrun.run_cell(arch, shape, "single")
+        if rec.get("skipped") or rec.get("error"):
+            raise AssertionError(f"accounting(c): {arch} {shape}: {rec}")
+        out["decode"][arch] = {key: rec[key] for key in (
+            "ops", "compile_s", "flops_per_device", "product_flops_per_device",
+            "hbm_bytes_per_device", "peak_bytes", "fits", "t_compute_s",
+            "t_memory_s", "dominant")}
+        log(f"accounting(c): {dryrun.summary(rec)}")
+    return out
+
+
 def main_data():
     """The main path's data: highleyman 500,000 points, 5,300 uniform
     queries, r = 5% of the bbox diagonal."""
@@ -3022,7 +3187,7 @@ def main() -> int:
     big_routes, big_checked, big = run_large_k(dev, pts, queries, r)
     lap("kernels")
 
-    launches, single = run_main(dev, pts, queries, r)
+    launches, single, exported = run_main(dev, pts, queries, r)
     lap("main")
     prim_launches, pair, cov = run_primitives(dev, pts, queries)
     lap("primitives")
@@ -3067,6 +3232,9 @@ def main() -> int:
     train_launches, train_out = run_train(dev)
     log("train: summary " + json.dumps(train_out))
     lap("train")
+    account = run_accounting(dev, pts, queries, r, train_out)
+    log("accounting: summary " + json.dumps({"export": exported, **account}))
+    lap("accounting")
     log("phase seconds " + json.dumps(seconds))
 
     bf = leaf_variants["bfloat16"]

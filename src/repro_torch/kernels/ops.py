@@ -7,7 +7,15 @@ CUDA launch that fails raises: nothing falls back. Each call is billed
 to the obs registry (`_account`) from the CUDA kernel's own launch plan
 (`topk_l2.block_plan` / `leaf_block_plan`, `pairwise_l2.block_plan`,
 `cov_matvec.block_plan`: the grid it launches, the bytes the function
-moves, the arithmetic it does), whichever version runs.
+moves, the arithmetic it does), whichever version runs. Each call also
+resolves its launch geometry through the autotuner (`autotune.
+choose_plan`, one cached decision per kernel, shape class, k, dtype and
+backend, which `decisions()` lists): `topk_l2` launches the chosen
+split; the other kernels have one plan each, recorded all the same.
+`leaf_topk_l2_raw` alone bills the quantized stream
+(`quantized.stream_bytes{dtype}`, at the candidates' storage width with
+the int8 scale, and `quantized.f32_stream_bytes{dtype}`, the same stream
+at 4 bytes an element), as the reference does.
 
 Two families, as in the reference's `kernels/ops.py`:
 
@@ -30,6 +38,7 @@ from __future__ import annotations
 import torch
 
 from .. import obs
+from . import autotune as _at
 from . import cov_matvec as _cm
 from . import pairwise_l2 as _pw
 from . import quantize
@@ -88,14 +97,22 @@ def _empty(rows: int, k: int, device, slots: bool):
 
 
 def _leaf_select(q, cands, cgids, rb, k: int, cscale, billed: str):
-    """Shared body of the leaf wrappers: bill, then kernel or plain."""
+    """Shared body of the leaf wrappers: plan, bill, then kernel or plain."""
     rows, c, d = cands.shape
+    sdt = quantize.dtype_name(cands.dtype)
+    _at.choose_plan("leaf_topk_l2", rows, c, d, k, dtype=sdt,
+                    backend=cands.device.type)
     if obs.REGISTRY.enabled:
         itemsize = cands.element_size()
-        _account(billed, _tk.leaf_block_plan(rows, c, d, k, itemsize=itemsize))
-        obs.REGISTRY.counter(
-            "quantized.stream_bytes", dtype=quantize.dtype_name(cands.dtype)
-        ).inc(rows * c * d * itemsize)
+        plan = _tk.leaf_block_plan(rows, c, d, k, itemsize=itemsize)
+        _account(billed, plan)
+        if billed == "leaf_topk_l2_raw":
+            # what this call streamed at storage width, and what the same
+            # call would have streamed in f32
+            reg = obs.REGISTRY
+            reg.counter("quantized.stream_bytes", dtype=sdt).inc(plan["stream_bytes"])
+            reg.counter("quantized.f32_stream_bytes", dtype=sdt).inc(
+                _tk.leaf_block_plan(rows, c, d, k)["stream_bytes"])
     args = (
         q.to(torch.float32).contiguous(),
         cands.contiguous(),
@@ -153,8 +170,10 @@ def topk_l2(q, p, gids, r, k: int):
     if m == 0 or n == 0:
         return _empty(m, k, p.device, slots=False)
     rb = _radius_rows(r, m, p.device)
+    d = q.shape[1]
+    plan = _at.choose_plan("topk_l2", m, n, d, k, backend=p.device.type)
     if obs.REGISTRY.enabled:
-        _account("topk_l2", _tk.block_plan(m, n, q.shape[1], k))
+        _account("topk_l2", _tk.block_plan(m, n, d, k))
     args = (
         q.to(torch.float32).contiguous(),
         p.to(torch.float32).contiguous(),
@@ -163,7 +182,7 @@ def topk_l2(q, p, gids, r, k: int):
         k,
     )
     if _on_cuda(p, "topk_l2"):
-        sq, g, _ = _tk.topk_cuda(*args)
+        sq, g, _ = _tk.topk_cuda(*args, split=plan["split"])
     else:
         sq, g, _ = _tk.topk_plain(*args)
     return _refine(sq, g, rb)
@@ -184,6 +203,8 @@ def pairwise_sq_l2(q, p):
     q, p = _kernel_dtype(q, p)
     m, d = q.shape
     n = p.shape[0]
+    _at.choose_plan("pairwise_sq_l2", m, n, d, dtype=quantize.dtype_name(q.dtype),
+                    backend=p.device.type)
     if obs.REGISTRY.enabled:
         _account("pairwise_sq_l2", _pw.block_plan(m, n, d, q.element_size()))
     if _on_cuda(p, "pairwise_sq_l2"):
@@ -208,6 +229,8 @@ def cov_matvec(x, mean, w):
     y = (X-μ)ᵀ((X-μ)w), (D,) f32, with x read once at its width."""
     (x,) = _kernel_dtype(x)
     n, d = x.shape
+    _at.choose_plan("cov_matvec", n, d, d, dtype=quantize.dtype_name(x.dtype),
+                    backend=x.device.type)
     if obs.REGISTRY.enabled:
         _account("cov_matvec", _cm.block_plan(n, d, x.element_size()))
     mean = mean.to(torch.float32).contiguous()

@@ -121,14 +121,19 @@ def _blocks(rows: int, per_block: int) -> int:
     return (rows + per_block - 1) // per_block
 
 
-def scan_geometry(m: int, n: int, k: int) -> dict:
-    """The split scan's launch geometry, from (Q, N, k) alone: one warp a
-    query, 8 a block, `ppl` points a lane a step, `split` arena points per
-    split (whole steps of 32·ppl), `groups` query groups × `splits` splits
-    = the scan's grid. Small Q splits the arena so that the grid still
+def scan_geometry(m: int, n: int, k: int, split: int | None = None) -> dict:
+    """The split scan's launch geometry, from (Q, N, k) and an optional
+    requested `split` (arena points a split): one warp a query, 8 a block,
+    `ppl` points a lane a step, `split` arena points per split (whole steps
+    of 32·ppl), `groups` query groups × `splits` splits = the scan's grid.
+    Without a request, small Q splits the arena so that the grid still
     fills the card (Q = 64, N = 4,096: 8 groups × 16 splits of 256); at
-    Q = 5,300 every query's warp scans the whole arena. k > 32 keeps the
-    shared-memory list: one point a lane, one split."""
+    Q = 5,300 every query's warp scans the whole arena. A request is
+    resolved as the kernel can take it: rounded up to whole steps, at most
+    the whole arena; k > 32 keeps the shared-memory list (one point a
+    lane, one split), and more query groups than a stream has ticket
+    counters (`cuda_lib.TICKETS`, 264: Q above 2,112) cannot split, so
+    both take the default geometry."""
     groups = -(-m // _SCAN_WARPS)
     if k > _REG_K:
         ppl, splits = 1, 1
@@ -137,7 +142,10 @@ def scan_geometry(m: int, n: int, k: int) -> dict:
         splits = max(1, min(-(-_SCAN_TARGET_BLOCKS // groups),
                             -(-n // _SCAN_MIN_SPLIT)))
     step = 32 * ppl  # a split is whole steps of 32 lanes × ppl points
-    split = -(-(-(-n // splits)) // step) * step
+    if split is None or k > _REG_K or groups > cuda_lib.TICKETS:
+        split = -(-(-(-n // splits)) // step) * step
+    else:
+        split = min(-(-n // step) * step, max(step, -(-int(split) // step) * step))
     return {"ppl": ppl, "split": split, "groups": groups,
             "splits": -(-n // split)}
 
@@ -149,7 +157,7 @@ def _pre_records(n: int, d: int, geo: dict) -> int:
     return geo["splits"] * geo["split"] + 32 * geo["ppl"] if d == 2 else n
 
 
-def block_plan(m: int, n: int, d: int, k: int) -> dict:
+def block_plan(m: int, n: int, d: int, k: int, split: int | None = None) -> dict:
     """Cost of one `topk_l2` call (`topk_cuda`) as the CUDA kernels run
     it: `grid` is the blocks of its two launches — the |p|² pre-pass (one
     thread a point) and the split scan (`scan_geometry`: query groups ×
@@ -161,8 +169,8 @@ def block_plan(m: int, n: int, d: int, k: int) -> dict:
     2·dot, the subtraction, the clamp and the radius and k-th-key
     compares, plus one |q|² and one |p|² each. Neither the split k-lists
     nor their merge is counted: they are the design's, not the
-    function's."""
-    geo = scan_geometry(m, n, k)
+    function's, so only `grid` and `blocks` follow a requested `split`."""
+    geo = scan_geometry(m, n, k, split)
     grid = (_blocks(_pre_records(n, d, geo), _PNORM_THREADS),
             geo["groups"] * geo["splits"])
     return {
@@ -180,9 +188,10 @@ def leaf_block_plan(r: int, c: int, d: int, k: int, *, itemsize: int = 4) -> dic
     its (c, d) candidates at their STORAGE width `itemsize` (4 = f32,
     2 = bf16, 1 = int8, which also streams a per-candidate f32 scale),
     its gids and gate read once, the (r, k) triple written once;
-    `flops` is the difference-form arithmetic per candidate (3 per dim,
-    one more for the int8 scale) plus the radius and k-th-key
-    compares."""
+    `stream_bytes` is the candidate stream alone (the candidates at their
+    storage width, plus the int8 scale); `flops` is the difference-form
+    arithmetic per candidate (3 per dim, one more for the int8 scale)
+    plus the radius and k-th-key compares."""
     scaled = itemsize == 1
     return {
         "blocks": _blocks(r, _LEAF_WARPS),
@@ -193,6 +202,7 @@ def leaf_block_plan(r: int, c: int, d: int, k: int, *, itemsize: int = 4) -> dic
         + (r * c * 4 if scaled else 0)
         + r * 4
         + r * k * 12,
+        "stream_bytes": r * c * d * itemsize + (r * c * 4 if scaled else 0),
     }
 
 
@@ -268,13 +278,36 @@ def expansion_sq(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return torch.clamp((qn + pn) - 2.0 * qp, min=0.0)
 
 
-def topk_plain(q, p, gids, r_sq, k: int):
+def topk_plain(q, p, gids, r_sq, k: int, split: int | None = None):
     """Plain version of the shared-points kernel: q (Q, D), p (N, D) f32,
-    gids (N,) i32, r_sq (Q,). Returns (sq, gid, slot), each (Q, k)."""
+    gids (N,) i32, r_sq (Q,). Returns (sq, gid, slot), each (Q, k).
+    `split` (arena points a split) repeats the kernel's split scan: each
+    split's k-list, then their merge by the (sq, slot) key — the same
+    answer for any split, which is what lets the autotuner choose it."""
     sq = expansion_sq(q, p)
     g = gids[None, :].expand_as(sq)
     ok = (g >= 0) & (sq <= r_sq[:, None])
-    return _select(sq, ok, g, k)
+    n = p.shape[0]
+    if split is None or split >= n:
+        return _select(sq, ok, g, k)
+    lists = []
+    for j0 in range(0, n, split):
+        j1 = min(n, j0 + split)
+        s_sq, s_g, s_slot = _select(sq[:, j0:j1], ok[:, j0:j1], g[:, j0:j1], k)
+        lists.append((s_sq, s_g, torch.where(s_slot == I32_MAX, s_slot, s_slot + j0)))
+    return _merge(*(torch.cat(x, dim=1) for x in zip(*lists)), k)
+
+
+def _merge(sq, g, slot, k: int):
+    """The k best of concatenated split k-lists (each ascending by (sq,
+    slot), the splits in arena order): a stable sort by sq over list
+    positions is the (sq, slot) order, as the kernel's last block merges."""
+    _, out_g, pos = _select(sq, slot != I32_MAX, g, k)
+    kept = pos != I32_MAX
+    at = torch.where(kept, pos, 0).long()
+    out_sq = torch.where(kept, torch.gather(sq, 1, at), float("inf"))
+    out_s = torch.where(kept, torch.gather(slot, 1, at), I32_MAX).to(torch.int32)
+    return out_sq, out_g, out_s
 
 
 # -- CUDA launches ------------------------------------------------------------
@@ -371,11 +404,12 @@ def _scan_smem(k: int) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def _scan_launch(m: int, n: int, d: int, k: int):
+def _scan_launch(m: int, n: int, d: int, k: int, split: int | None):
     """(ppl, split, groups, splits, scratch words) of one `topk_cuda` call,
-    kept per shape: the Python that computes them costs microseconds a
-    call. Raises where a block cannot hold the k-lists."""
-    geo = scan_geometry(m, n, k)
+    kept per shape and requested split (`scan_geometry`): the Python that
+    computes them costs microseconds a call. Raises where a block cannot
+    hold the k-lists."""
+    geo = scan_geometry(m, n, k, split)
     _scan_smem(k)
     # scratch, one int32 buffer: the pre-pass's records (4 words each),
     # then with splits > 1 the (m, splits, k) split lists (sq, gid, slot)
@@ -384,8 +418,10 @@ def _scan_launch(m: int, n: int, d: int, k: int):
     return geo["ppl"], geo["split"], geo["groups"], geo["splits"], pre, parts
 
 
-def topk_cuda(q, p, gids, r_sq, k: int):
-    """Launch the shared-points kernels (same contract as `topk_plain`)."""
+def topk_cuda(q, p, gids, r_sq, k: int, split: int | None = None):
+    """Launch the shared-points kernels (same contract as `topk_plain`);
+    `split` requests the scan's arena points a split (`scan_geometry`
+    resolves it; None: its default), which changes no result."""
     device = p.device
     m, d = q.shape
     n = p.shape[0]
@@ -399,7 +435,7 @@ def topk_cuda(q, p, gids, r_sq, k: int):
     _check(r_sq, "r_sq", torch.float32, (m,), device)
     if route(k) == "sort":
         return _topk_sort(q, p, gids, r_sq, k)
-    ppl, split, groups, splits, pre, parts = _scan_launch(m, n, d, k)
+    ppl, split, groups, splits, pre, parts = _scan_launch(m, n, d, k, split)
     out = _outputs(m, k, device)
     scratch = torch.empty(pre + parts, dtype=torch.int32, device=device)
     base = scratch.data_ptr()

@@ -2,11 +2,11 @@
 
 One process-wide substrate for the accounting every other subsystem
 needs: `metrics` (thread-safe labeled counters / gauges / mergeable
-log2-bucket histograms) and `trace` (host spans that double as
+log2-bucket histograms), `trace` (host spans that double as
 `torch.profiler` annotations, plus the per-engine-call `QueryTrace`
-carrying the paper's nodes-visited / distance-evaluation metrics).
-The reference's `export` module waits for a later slice (it reads the
-block autotuner, which is not ported yet).
+carrying the paper's nodes-visited / distance-evaluation metrics) and
+`export` (the `BENCH_obs.json` payload with the autotuner's launch plans
+and the quantized-stream summary, and a human table).
 
 Instrumented layers: `query/engine.py` (dispatch/stack-cache
 accounting, stage spans, per-query paper metrics), `core/search.py`
@@ -14,7 +14,7 @@ accounting, stage spans, per-query paper metrics), `core/search.py`
 `index/delta.py` (write-path counters, occupancy/garbage gauges), and
 `kernels/ops.py` (per-call block/bytes/FLOP accounting).
 """
-from . import metrics, trace
+from . import export, metrics, trace
 from .metrics import REGISTRY, Registry, reset, snapshot
 from .trace import QueryTrace, span
 
@@ -22,6 +22,7 @@ __all__ = [
     "REGISTRY",
     "Registry",
     "QueryTrace",
+    "export",
     "metrics",
     "reset",
     "snapshot",

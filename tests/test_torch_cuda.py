@@ -712,3 +712,36 @@ def test_train_step_on_the_card_matches_the_cpu(dev):
     finally:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
     assert out["opt_rel_err_max"] <= 1e-5 and out["update_rel_err_max"] <= 1e-2
+
+
+@pytest.mark.parametrize("m", [1, 64, 5300])
+def test_topk_kernel_every_ranked_split_equals_plain(dev, m):
+    """topk_l2 under every split the autotuner ranks (N = 4,096, k = 10,
+    the main path's arena; Q = 5,300 has one candidate, the whole arena):
+    bitwise equal to the plain version, whichever block finds a key
+    first; and `ops.topk_l2`, which launches the tuned split, equal to the
+    kernel under today's split."""
+    from repro_torch.kernels import autotune as at
+
+    n, k = 4096, 10
+    rng = np.random.default_rng(m)
+    q = torch.from_numpy(rng.standard_normal((m, 2)).astype(np.float32))
+    p = torch.from_numpy(rng.standard_normal((n, 2)).astype(np.float32))
+    p[-40:] = p[:40]  # equal keys across splits tie on the slot
+    g = torch.from_numpy(np.where(rng.random(n) < 0.2, -1,
+                                  np.arange(n)).astype(np.int32))
+    r_sq = tk.radius_sq_upper(torch.full((m,), 1.5))
+    want = tk.topk_plain(q, p, g, r_sq, k)
+    args = [t.to(dev) for t in (q, p, g, r_sq)]
+    plans = at.ranked("topk_l2", m, n, 2, k)
+    assert plans
+    for plan in plans:
+        got = tk.topk_cuda(*args, k, split=plan["bn"])
+        for x, y in zip(got, want):
+            assert torch.equal(x.cpu(), y), plan["bn"]
+    # the wrapper launches the tuned split: its answer is the kernel's
+    # under today's split, refined on the card alike
+    d_card, g_card = ops.topk_l2(args[0], args[1], args[2], 1.5, k)
+    sq, gk, _ = tk.topk_cuda(*args, k)
+    d_want, g_want = ops._refine(sq, gk, torch.full((m,), 1.5, device=dev))
+    assert torch.equal(d_card, d_want) and torch.equal(g_card, g_want)

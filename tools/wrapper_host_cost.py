@@ -13,7 +13,9 @@ gives the whole wrapper's cost at the main path's shapes.
 
 Then the whole wrappers of the leaf, arena and pairwise kernels, each
 called back to back at a serving-sized shape (inputs on the card, made
-once), timed the same way. `--src` is the `src` directory whose
+once), timed the same way — the kernel modules' launch functions and the
+public `kernels.ops` wrappers above them (which also bill the obs
+registry and, where the tree has the autotuner, look up its plan). `--src` is the `src` directory whose
 `repro_torch` is timed (default: this repository's), so one command can
 time two commits' wrappers on one card, in turns (unpack the other with
 `git archive` into a directory that .gitignore lists).
@@ -46,7 +48,7 @@ def main() -> int:
         print("wrapper_host_cost: needs a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.abspath(args.src))  # ahead of chip_smoke's
-    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels import cuda_lib, ops
     from repro_torch.kernels import pairwise_l2 as pw
     from repro_torch.kernels import topk_l2 as tk
 
@@ -80,6 +82,13 @@ def main() -> int:
         "ctypes call, 13 arguments (returns early)":
             lambda: lib.cov_matvec_launch(0, 0, 0, 0, 0, 2, 1, 1, 1, 0, 0, 0, 0),
     }
+    try:
+        from repro_torch.kernels import autotune
+    except ImportError:  # a tree from before the autotuner
+        autotune = None
+    if autotune is not None:
+        steps["autotune.choose_plan (cached)"] = lambda: autotune.choose_plan(
+            "topk_l2", 8, 4096, 2, 10, backend="cuda")
     for name, fn in steps.items():
         us = 1e3 * cs.time_host_ms(fn, reps=3000)
         print(f"{name:44s} {us:8.3f} us", flush=True)
@@ -100,6 +109,10 @@ def main() -> int:
             lambda: tk.topk_cuda(lq, arena, ag, r_sq, 10),
         "pw.pairwise_cuda M=8 N=4096 D=2 (narrow route)":
             lambda: pw.pairwise_cuda(lq, arena),
+        f"ops.leaf_topk_l2_raw R={rows} C={c} D=2 k'={kp} bf16":
+            lambda: ops.leaf_topk_l2_raw(lq, cands, cg, 0.1, kp),
+        "ops.topk_l2 Q=8 N=4096 D=2 k=10":
+            lambda: ops.topk_l2(lq, arena, ag, 0.1, 10),
     }
     out = {"label": args.label, "src": args.src}
     for name, fn in wrappers.items():
