@@ -252,13 +252,45 @@ Phases, in order; any failure raises and the script exits non-zero:
                    factor of 2.0 and both rescore outcomes; `dump_json`
                    read back equal;
                (c) `launch/dryrun.run_cell` of phase 10's cell (qwen2-0.5b,
-                   train 4 x 2,048, remat "full", AdamW) on meta tensors:
+                   train 4 x 2,048, remat "full", AdamW; the "card" cell,
+                   one H100 with no mesh) on meta tensors:
                    its counted peak within 10% of the last step's
                    `max_memory_allocated()`, its product FLOPs 1.0-1.5x
                    `train_flops`, both ratios printed; then the decode_32k
                    cell of qwen2-0.5b, deepseek-v2-lite-16b,
                    recurrentgemma-9b and xlstm-125m at the published size,
                    one line each.
+  12. mesh — `launch/mesh` and `models/sharding` (no kernel of the port
+               is on this path):
+               (a) `mesh(a):` the dry run on the reference's production
+                   meshes, 16 x 16 ("single", 256 ranks) and 2 x 16 x 16
+                   ("multi", 512), of qwen2-0.5b train_4k and decode_32k
+                   and deepseek-v2-lite-16b train_4k (its experts on the
+                   model axis), each in a fake world of its size, rank
+                   0's program counted: per-device FLOPs, HBM bytes,
+                   collective bytes by kind, peak GB, fits, trace seconds;
+                   the parameter elements a device holds equal the
+                   reference's placement (1,975,168 train / 30,918,208
+                   serve for qwen2-0.5b, 65,081,344 train for deepseek)
+                   and collective bytes are above 0. The six cells run as
+                   subprocesses started when the phase begins, on the
+                   host's cores beside (b), and are read after it (the
+                   times of phases 2-11 are taken without them).
+               (b) `mesh(b):` the mesh path live on the card: one H100
+                   cannot host an NCCL mesh of several ranks, and gloo
+                   does not carry the step's collectives on CUDA tensors
+                   (PERF.md), so by a fixed choice (`MESH_BACKEND`) a
+                   1 x 1 mesh through NCCL: qwen2-0.5b at full width and
+                   depth, 4 x 512, placed by `train_rules` (every
+                   parameter a DTensor), its loss and gradients against
+                   the one-rank step on the card; two train steps, after
+                   each of which the losses, gradient norms, parameters
+                   and both moments equal the one rank's bitwise; a
+                   checkpoint written on the mesh restored on one rank
+                   bitwise; then serving under `serve_rules` (bf16
+                   weights, prefill of 4 x 512 and 3 decode steps), the
+                   logits equal to one rank's bitwise. No collective of
+                   the mesh path runs on the card; the line says so.
 
 Kernel times ("ms") are CUDA-event means over back-to-back eager calls
 through the wrapper, what the port pays. For the two launch-bound
@@ -273,6 +305,7 @@ object, the card's name and power limit, and `{"ok": true, ...}`.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -3113,7 +3146,7 @@ def run_accounting(dev, pts, queries, r, train_out):
 
     out = {"scan": check_tuned_scan(dev, pts, queries, r)}
     B, S = TRAIN_BATCH
-    rec = dryrun.run_cell(TRAIN_ARCH, Shape("train_phase10", "train", S, B), "single")
+    rec = dryrun.run_cell(TRAIN_ARCH, Shape("train_phase10", "train", S, B), "card")
     peak_ratio = rec["peak_bytes"] / train_out["step_peak_bytes"]
     flop_ratio = rec["product_flops_per_device"] / train_out["flops"]
     out["train_cell"] = {"record": rec, "measured_peak_bytes": train_out["step_peak_bytes"],
@@ -3131,7 +3164,7 @@ def run_accounting(dev, pts, queries, r, train_out):
     shape, archs = ACCOUNT_DECODE
     out["decode"] = {}
     for arch in archs:
-        rec = dryrun.run_cell(arch, shape, "single")
+        rec = dryrun.run_cell(arch, shape, "card")
         if rec.get("skipped") or rec.get("error"):
             raise AssertionError(f"accounting(c): {arch} {shape}: {rec}")
         out["decode"][arch] = {key: rec[key] for key in (
@@ -3139,6 +3172,277 @@ def run_accounting(dev, pts, queries, r, train_out):
             "hbm_bytes_per_device", "peak_bytes", "fits", "t_compute_s",
             "t_memory_s", "dominant")}
         log(f"accounting(c): {dryrun.summary(rec)}")
+    return out
+
+
+# -- phase 12: mesh ---------------------------------------------------------------
+MESH_CELLS = (("qwen2-0.5b", "train_4k", "train"), ("qwen2-0.5b", "decode_32k", "serve"),
+              ("deepseek-v2-lite-16b", "train_4k", "train"))
+MESH_KINDS = ("single", "multi")
+# the parameter elements a device holds under the reference's placement
+# (its Rules.resolve, tests/test_torch_sharding.py): the same on both meshes
+MESH_PER_DEVICE = {("qwen2-0.5b", "train"): 1_975_168,
+                   ("qwen2-0.5b", "serve"): 30_918_208,
+                   ("deepseek-v2-lite-16b", "train"): 65_081_344}
+MESH_DRYRUN_TIMEOUT = 900
+# (b): one card holds one NCCL rank; gloo does not carry the step's
+# collectives on CUDA tensors (a probe of four gloo ranks on one H100,
+# PERF.md), so the live mesh is a 1 x 1 mesh through NCCL: a fixed choice
+MESH_BACKEND, MESH_LIVE = "nccl", (1, 1)
+MESH_BATCH, MESH_STEPS = (4, 512), 2
+MESH_PROMPT, MESH_DECODES = 512, 3  # serving: the first batch, then the second's
+MESH_GRAD_RTOL, MESH_LOSS_RTOL = 2e-2, 1e-3
+
+
+def start_mesh_dryruns():
+    """Phase 12 (a): one `launch.dryrun` subprocess a cell, all at once;
+    returns [(arch, shape, rules, mesh, process, log path)]."""
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    out_dir = tempfile.mkdtemp(prefix="mesh-dryrun-")
+    env = {**os.environ, "PYTHONPATH": src, "OMP_NUM_THREADS": "1"}
+    procs = []
+    for arch, shape, rules in MESH_CELLS:
+        for mesh in MESH_KINDS:
+            path = os.path.join(out_dir, f"{arch}__{shape}__{mesh}.log")
+            with open(path, "w") as fh:
+                proc = subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                     "--shape", shape, "--mesh", mesh], stdout=fh, stderr=subprocess.STDOUT,
+                    env=env)
+            procs.append((arch, shape, rules, mesh, proc, path))
+    return procs
+
+
+def stop_mesh_dryruns(procs):
+    for *_, proc, _ in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def run_mesh(dev):
+    """Phase 12: (a) the production-mesh dry runs, started as subprocesses
+    when the phase begins; (b) the mesh path on the card (`MESH_BACKEND`,
+    `MESH_LIVE`) while they run on the host's other cores; then (a)'s
+    records are read."""
+    procs = start_mesh_dryruns()
+    try:
+        return _run_mesh(dev, procs)
+    finally:
+        stop_mesh_dryruns(procs)
+
+
+def _run_mesh(dev, procs):
+    from repro_torch.launch import dryrun
+
+    out = {"live": run_mesh_live(dev), "dryrun": {}}
+    deadline = time.time() + MESH_DRYRUN_TIMEOUT
+    for arch, shape, rules, mesh, proc, path in procs:
+        try:
+            proc.wait(timeout=max(1.0, deadline - time.time()))
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"mesh(a): {arch} {shape} {mesh}: no record within "
+                                 f"{MESH_DRYRUN_TIMEOUT} s")
+        if proc.returncode != 0:
+            with open(path) as fh:
+                tail = fh.read()[-3000:]
+            raise AssertionError(f"mesh(a): {arch} {shape} {mesh} failed:\n{tail}")
+        with open(dryrun.cell_path(arch, shape, mesh)) as fh:
+            rec = json.load(fh)
+        want = MESH_PER_DEVICE[(arch, rules)]
+        got = rec["param_elements_per_device"]
+        n = {"single": 256, "multi": 512}[mesh]
+        if got != want or rec["n_devices"] != n or rec["collective_bytes_per_device_total"] <= 0:
+            raise AssertionError(f"mesh(a): {arch} {shape} {mesh}: {got:,} parameter "
+                                 f"elements a device (want {want:,}), {rec['n_devices']} "
+                                 f"devices, collective {rec['collective_bytes_per_device_total']}")
+        coll = {k: int(v) for k, v in rec["collective_bytes_per_device"].items()}
+        log(f"mesh(a): {arch} {shape} {mesh} ({rec['n_devices']} devices, {rules} rules): "
+            f"{got:,} parameter elements a device; per device {rec['flops_per_device']:.4e} "
+            f"FLOP, {rec['hbm_bytes_per_device']:.4e} HBM B, collective B {coll} "
+            f"(total {rec['collective_bytes_per_device_total']:.4e}; by axis "
+            f"{ {k: int(v) for k, v in rec['collective_bytes_per_device_by_axis'].items()} }), "
+            f"t_collective {rec['t_collective_s']:.4e} s, peak "
+            f"{rec['peak_bytes'] / 1e9:.3f} GB, fits {rec['fits']}; traced in "
+            f"{rec['compile_s']} s; {rec['card']}, {rec['power_limit']}")
+        out["dryrun"][f"{arch} {shape} {mesh}"] = {key: rec[key] for key in (
+            "n_devices", "param_elements_per_device", "flops_per_device",
+            "hbm_bytes_per_device", "collective_bytes_per_device",
+            "collective_bytes_per_device_by_axis", "t_collective_s", "peak_bytes",
+            "fits", "compile_s")}
+    return out
+
+
+def state_differences(one, st1, mesh_model, stm):
+    """[(name, "p" / "m" / "v", max abs difference)] of every parameter or
+    moment of the mesh's model that is not bitwise the one rank's."""
+    out = []
+    for (name, p), q in zip(one.named_parameters(), mesh_model.parameters()):
+        for what, a, b in (("p", p, q), ("m", st1["m"][name], stm["m"][name]),
+                           ("v", st1["v"][name], stm["v"][name])):
+            b = b.full_tensor().reshape(a.shape)
+            if not torch.equal(a.detach(), b.detach()):
+                out.append((name, what, float((a.detach() - b.detach()).abs().max())))
+    return out
+
+
+def mesh_serve_live(cfg, dev, rules, tokens):
+    """Phase 12 (b)'s serving: the bf16 model placed by `rules` (a 1 x 1
+    mesh's serve rules) prefills the first MESH_PROMPT tokens of each row
+    of `tokens` and decodes the next MESH_DECODES; the same on one rank;
+    the logits compared bitwise (the same operations on the same
+    numbers)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.models import model as M
+    from repro_torch.models import sharding
+
+    tok = torch.from_numpy(np.asarray(tokens)).to(dev)
+    logits = []
+    for placed in (False, True):
+        model = M.init_params(cfg, torch.Generator(device=dev).manual_seed(1), dev)
+        got = []
+        with contextlib.ExitStack() as stack:
+            put = (lambda t: t)
+            if placed:
+                sharding.shard_model(model, rules)
+                stack.enter_context(sharding.axis_rules(rules))
+                stack.enter_context(implicit_replication())
+                put = (lambda t: sharding.place(t, rules, ("batch", None)))
+            y, cache = M.prefill(model, put(tok[:, :MESH_PROMPT].contiguous()),
+                                 MESH_PROMPT + MESH_DECODES)
+            got.append(y.full_tensor() if placed else y)
+            for i in range(MESH_DECODES):
+                step_tok = tok[:, MESH_PROMPT + i:MESH_PROMPT + i + 1].contiguous()
+                y, cache = M.decode_step(model, cache, put(step_tok), MESH_PROMPT + i)
+                got.append(y.full_tensor() if placed else y)
+        logits.append(got)
+        del model, cache
+    worst = max(float((a.float() - b.float()).abs().max()) for a, b in zip(*logits))
+    bitwise = all(torch.equal(a, b) for a, b in zip(*logits))
+    if not bitwise:
+        raise AssertionError(f"mesh(b): serving on the 1 x 1 mesh differs from one rank's "
+                             f"by {worst}")
+    return {"prompt": MESH_PROMPT, "decodes": MESH_DECODES, "bitwise": bitwise,
+            "max_abs": worst, "shape": list(logits[1][0].shape)}
+
+
+def run_mesh_live(dev):
+    """Phase 12 (b): qwen2-0.5b at full width and depth on a `MESH_LIVE`
+    mesh through `MESH_BACKEND`, against the one-rank step on the card."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch import configs
+    from repro_torch.data import tokens as data_lib
+    from repro_torch.launch import hlo
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import sharding
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import loop as L
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import make_train_step
+
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    n = MESH_LIVE[0] * MESH_LIVE[1]
+    dist.init_process_group(MESH_BACKEND, init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=n)
+    out = {"backend": MESH_BACKEND, "mesh": list(MESH_LIVE)}
+    try:
+        t0 = time.perf_counter()
+        rules = sharding.train_rules(make_host_mesh(*MESH_LIVE, device_type="cuda"))
+        cfg = configs.get(TRAIN_ARCH)
+        B, S = MESH_BATCH
+        data = data_lib.DataConfig(vocab=cfg.vocab, seq=S, global_batch=B, seed=0)
+
+        def model_of():
+            return M.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev,
+                                 param_dtype=torch.float32).requires_grad_(True)
+
+        one = model_of()
+        mesh_model = sharding.shard_model(model_of(), rules)
+        first = {k: torch.from_numpy(v).to(dev) for k, v in data_lib.batch_at(data, 0).items()}
+        placed = {k: sharding.place(v, rules, ("batch", None)) for k, v in first.items()}
+        loss1, _ = M.loss_fn(one, first)
+        g1 = torch.autograd.grad(loss1, list(one.parameters()))
+        counter = hlo.Counter()
+        with sharding.axis_rules(rules), implicit_replication(), counter:
+            lossm, _ = M.loss_fn(mesh_model, placed)
+            gm = torch.autograd.grad(lossm, list(mesh_model.parameters()))
+        lossm = float(lossm.full_tensor())
+        total = float(opt.global_norm(g1))
+        worst = 0.0
+        for (name, p), a, b in zip(one.named_parameters(), g1, gm):
+            err = float((b.full_tensor().reshape(a.shape) - a).norm())
+            worst = max(worst, err / (float(a.norm()) + 1e-6 * total))
+            if err > MESH_GRAD_RTOL * float(a.norm()) + 1e-6 * total:
+                raise AssertionError(f"mesh(b): gradient of {name}: {err} vs "
+                                     f"{float(a.norm())}")
+        if abs(lossm - float(loss1)) > MESH_LOSS_RTOL * abs(float(loss1)):
+            raise AssertionError(f"mesh(b): loss {lossm} on the mesh, {float(loss1)} on one rank")
+        del g1, gm
+        ocfg = opt.AdamWConfig(lr=6e-4, warmup_steps=1, total_steps=MESH_STEPS)
+        step = make_train_step(cfg, ocfg)
+        st1 = opt.init(dict(one.named_parameters()))
+        stm = opt.init(dict(mesh_model.named_parameters()))
+        losses, norms, differ = [], [], []
+        for i in range(MESH_STEPS):
+            b = {k: torch.from_numpy(v).to(dev) for k, v in data_lib.batch_at(data, i).items()}
+            _, st1, m1 = step(one, st1, b)
+            with sharding.axis_rules(rules), implicit_replication():
+                _, stm, mm = step(mesh_model, stm, {k: sharding.place(v, rules, ("batch", None))
+                                                    for k, v in b.items()})
+            losses.append((float(m1["loss"]), float(mm["loss"].full_tensor())))
+            norms.append((float(m1["grad_norm"]), float(mm["grad_norm"].full_tensor())))
+            differ.append(state_differences(one, st1, mesh_model, stm))
+        # a 1 x 1 mesh runs the one rank's operations on the same numbers:
+        # its losses, parameters and both moments must be equal bitwise
+        if any(a != b for a, b in losses + norms) or any(differ):
+            raise AssertionError(f"mesh(b): the 1 x 1 mesh's steps differ from one rank's: "
+                                 f"losses {losses}, gradient norms {norms}, differing "
+                                 f"tensors by step {differ}")
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt.save(tmp, MESH_STEPS, L.state_trees(cfg, mesh_model, stm))
+            back = ckpt.restore(ckpt.latest(tmp), L.state_trees(cfg, one, st1))
+            mine = dict(ckpt._leaves(L.state_trees(cfg, mesh_model, stm)))
+            same = all(np.array_equal(ckpt._host(t), ckpt._host(mine[k]))
+                       for k, t in ckpt._leaves(back))
+        if not same:
+            raise AssertionError("mesh(b): the mesh's checkpoint restored on one rank "
+                                 "differs")
+        del one, mesh_model, st1, stm, back, mine
+        gc.collect()
+        torch.cuda.empty_cache()
+        served = mesh_serve_live(cfg, dev, sharding.serve_rules(rules.mesh), np.concatenate(
+            [data_lib.batch_at(data, 0)["inputs"],
+             data_lib.batch_at(data, 1)["inputs"][:, :MESH_DECODES]], 1))
+        torch.cuda.synchronize()
+        out.update(seconds=time.perf_counter() - t0, loss=lossm, loss_one=float(loss1),
+                   worst_grad_rel=worst, step_losses=losses, step_grad_norms=norms,
+                   state_bitwise=True, ckpt_bitwise=same, serve=served,
+                   collective_bytes=dict(counter.cost.collective_bytes))
+        log(f"mesh(b): qwen2-0.5b at full width and depth, {B} x {S}, on a "
+            f"{MESH_LIVE[0]} x {MESH_LIVE[1]} mesh through {MESH_BACKEND} (every parameter "
+            f"a DTensor placed by train_rules): loss {lossm:.6f} vs {float(loss1):.6f} one "
+            f"rank; worst gradient error {worst:.3e} of its norm; {MESH_STEPS} steps' "
+            f"losses (one rank, mesh) {losses}, gradient norms {norms}; parameters and "
+            f"both moments equal to one rank's bitwise after every step; checkpoint "
+            f"written on the mesh restored on one rank bitwise: {same}; serving "
+            f"(serve_rules) prefill {MESH_PROMPT} + {MESH_DECODES} decode steps: logits "
+            f"equal to one rank's bitwise: {served['bitwise']}; collective bytes counted "
+            f"{dict(counter.cost.collective_bytes)}: no collective of the mesh path ran "
+            f"on the card (one card hosts one NCCL rank; gloo does not carry the "
+            f"step's collectives on CUDA tensors); {out['seconds']:.1f} s")
+    finally:
+        dist.destroy_process_group()
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
     return out
 
 
@@ -3171,6 +3475,13 @@ def main() -> int:
         if "registers" in line or "Compiling entry" in line:
             log("ptxas: " + line.strip())
 
+    return _phases(dev, card)
+
+
+def _phases(dev, card) -> int:
+    from repro_torch.kernels import cuda_lib
+
+    info = cuda_lib.BUILD_INFO
     pts, queries, r = main_data()
     seconds = {}  # wall seconds of each phase, its checks included
     t0 = time.perf_counter()
@@ -3235,6 +3546,11 @@ def main() -> int:
     account = run_accounting(dev, pts, queries, r, train_out)
     log("accounting: summary " + json.dumps({"export": exported, **account}))
     lap("accounting")
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_out = run_mesh(dev)
+    log("mesh: summary " + json.dumps(mesh_out))
+    lap("mesh")
     log("phase seconds " + json.dumps(seconds))
 
     bf = leaf_variants["bfloat16"]

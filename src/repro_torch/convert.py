@@ -10,7 +10,7 @@ does the same for the reference's `distributed.ShardedIndex`, and
 `reference_tree` is the inverse: the port's parameters (or AdamW
 moments, which carry the same names) as the reference's value tree, which
 is what the training checkpoints store; `load_reference_tree` copies such
-a tree back into them.
+a tree back into them, and `reference_ndims` gives each leaf's rank.
 """
 from __future__ import annotations
 
@@ -138,6 +138,31 @@ def reference_tree(cfg, named) -> dict:
                  for _ in range(reps)]
         groups.append(units[0] if reps == 1 else _stack(units))
     return {"groups": groups, **tree}
+
+
+def reference_ndims(cfg, named) -> dict:
+    """{port parameter name: its number of dims as a leaf of the
+    reference's value tree (`reference_tree`)} for the names of `named`:
+    the head axes the port merges split again, and one more in a scan
+    group of `reps` > 1, whose leaves are stacked on a leading axis. The
+    reference's AdamW decays a leaf of 2 dims or more, so this is what
+    decides the port's decay (`train.optimizer.update`), on one card and
+    on a mesh alike."""
+    plan = cfg.layer_plan()
+    stacked = [reps > 1 for unit, reps in cfg.scan_groups()
+               for _ in range(reps) for _ in unit]
+    out = {}
+    for name, t in named.items():
+        if not name.startswith("layers."):
+            out[name] = t.ndim
+            continue
+        _, idx, rest = name.split(".", 2)
+        keys = rest.split(".")
+        shape = None
+        if keys[0] == "mixer" and len(keys) == 2:
+            shape = _reference_shapes(cfg, plan[int(idx)][0]).get(keys[1])
+        out[name] = (len(shape) if shape else t.ndim) + stacked[int(idx)]
+    return out
 
 
 def load_reference_tree(cfg, named, tree) -> None:

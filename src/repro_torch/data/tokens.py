@@ -56,13 +56,20 @@ def batch_at(cfg: DataConfig, step: int) -> Dict[str, np.ndarray]:
 
 
 def stream(
-    cfg: DataConfig, start_step: int = 0, device="cuda"
+    cfg: DataConfig, start_step: int = 0, device="cuda", shardings=None
 ) -> Iterator[Dict[str, torch.Tensor]]:
     """Infinite batch iterator starting at `start_step` (restart-exact),
-    each batch's tensors on `device` (the reference places them by a
-    sharding; one device here)."""
+    each batch's tensors on `device`; with `shardings` (the mesh's
+    `models.sharding.Rules`) each is a DTensor placed ("batch", None, ...),
+    as the reference places its batches, every rank keeping its rows."""
     step = start_step
     while True:
         b = batch_at(cfg, step)
-        yield {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+        out = {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+        if shardings is not None:
+            from ..models.sharding import place
+
+            out = {k: place(v, shardings, ("batch",) + (None,) * (v.ndim - 1))
+                   for k, v in out.items()}
+        yield out
         step += 1

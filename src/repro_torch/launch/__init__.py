@@ -1,8 +1,10 @@
 """Launchers of the port (the reference's `launch/`): `serve`, batched
 generation, optionally retrieval-augmented; `train`, the training loop on
-one device; and the accounting tier on one card — `specs` (abstract
-inputs on the meta device), `hlo` (work, bytes and memory counted from
-the aten ops a call dispatches), `dryrun` (every arch × shape cell at its
-published size), `roofline` and `report` (their tables). The reference's
-`mesh` (TPU meshes of 256 and 512 chips) is not ported: one card has no
-mesh."""
+one device or as one rank of a (data, model) mesh under torchrun; `mesh`,
+the production meshes of 256 and 512 devices as `DeviceMesh`es (and a
+fake world to lay them out without the cards); and the accounting tier —
+`specs` (abstract inputs on the meta device, placed by the sharding rules
+on a mesh), `hlo` (work, bytes, collectives and memory counted from the
+aten ops a call dispatches, per device), `dryrun` (every arch × shape
+cell at its published size, on the production meshes or one card),
+`roofline` and `report` (their tables)."""

@@ -1,6 +1,6 @@
-"""Dry run of every (arch × shape) cell on one card (a port of the
-reference's `launch/dryrun.py`): the work, bytes and memory of a train
-step, a prefill or a decode step at the published size, with nothing
+"""Dry run of every (arch × shape) cell (a port of the reference's
+`launch/dryrun.py`): the work, bytes and memory of a train step, a
+prefill or a decode step at the published size, per device, with nothing
 allocated, into artifacts/dryrun_torch/*.json.
 
 The reference lowers and compiles each cell on a 256- or 512-chip TPU
@@ -9,18 +9,25 @@ from the compiled HLO. The port runs the cell's own entry point —
 `train/step.make_train_step` with `AdamWConfig()`, `models/model.prefill`
 or `decode_step` — on `meta` tensors (`launch/specs`) under the dispatch
 counter (`launch/hlo`), and records the same fields: FLOPs, HBM bytes and
-collective bytes, the memory sizes, and the roofline terms against the
-card's peaks, beside the card's name, power limit and memory, and whether
-the cell's peak fits it (the counterpart of the compile that proves a
-cell coherent). `compile_s` holds the seconds of the trace: nothing is
-compiled. One card has no mesh: `--mesh multi` and `both` raise until
-`launch/mesh` is ported.
+collective bytes by kind, the memory sizes, and the roofline terms
+against the card's peaks, beside the card's name, power limit and memory,
+and whether the cell's peak fits it. `compile_s` holds the seconds of the
+trace: nothing is compiled.
+
+--mesh takes the reference's meanings: `single` is the 16 x 16 mesh of
+256 devices, `multi` the 2 x 16 x 16 of 512, `both` the two. Each such
+cell runs inside `launch.mesh.fake_world(n)` under `train_rules` (train)
+or `serve_rules` (prefill, decode), its inputs placed as the reference
+places them, and rank 0's program is counted: every figure is one
+device's. `--mesh card` is the port's own cell, one H100 with no mesh
+(nothing sharded, no collective).
 
 Usage:
-  python -m repro_torch.launch.dryrun --arch qwen2-0.5b --shape train_4k
-  python -m repro_torch.launch.dryrun --all [--arch A] [--shape S] [--skip-existing]
-(--all runs one subprocess a cell, optionally only those of --arch /
---shape; the entry point reads the card's properties and needs one.)
+  python -m repro_torch.launch.dryrun --arch qwen2-0.5b --shape train_4k --mesh single
+  python -m repro_torch.launch.dryrun --all [--mesh both] [--arch A] [--shape S] [--skip-existing]
+(--all runs one subprocess a cell, --jobs of them at a time, optionally
+only those of --arch / --shape; the entry point reads the card's
+properties and needs one.)
 """
 import argparse
 import dataclasses
@@ -37,9 +44,15 @@ import torch
 ART = pathlib.Path(__file__).resolve().parents[3] / "artifacts" / "dryrun_torch"
 _SRC = pathlib.Path(__file__).resolve().parents[2]
 
-# NVLink between the cards of one host, each way (NVIDIA's H100 data
-# sheet); no collective runs on one card
-LINK_BYTES_PER_S = 450e9
+# The links a collective crosses on H100 hosts of 8 cards: NVLink inside
+# a host, 450 GB/s each way a card (NVIDIA H100 SXM5 data sheet: 900 GB/s
+# of NVLink 4 bandwidth, both ways), and one 400 Gb/s NDR InfiniBand port
+# a card across hosts, 50 GB/s (NVIDIA ConnectX-7 / DGX H100 data sheets).
+# A mesh axis whose ranks span more than one host runs at the slower rate.
+NVLINK_BYTES_PER_S = 450e9
+NDR_BYTES_PER_S = 50e9
+CARDS_PER_HOST = 8
+MESHES = {"single": (False, 256), "multi": (True, 512), "card": (None, 1)}
 
 
 def cell_path(arch: str, shape: str, mesh: str) -> pathlib.Path:
@@ -47,11 +60,20 @@ def cell_path(arch: str, shape: str, mesh: str) -> pathlib.Path:
     return ART / f"{safe}__{shape}__{mesh}.json"
 
 
-def _check_mesh(mesh_kind: str) -> None:
-    if mesh_kind != "single":
-        raise ValueError(
-            f"--mesh {mesh_kind}: the port runs on one card; a mesh of "
-            "several cards waits for launch/mesh, which is not ported yet")
+def axis_links(mesh) -> dict:
+    """{group name: (mesh axis, bytes/s)} of each axis of `mesh`: NVLink
+    where rank 0's group along the axis stays inside one host of
+    `CARDS_PER_HOST` cards, NDR where it spans hosts."""
+    out = {}
+    coord = [0] * mesh.ndim
+    for m, name in enumerate(mesh.mesh_dim_names):
+        idx = list(coord)
+        idx[m] = slice(None)
+        ranks = mesh.mesh[tuple(idx)].flatten().tolist()
+        hosts = {r // CARDS_PER_HOST for r in ranks}
+        rate = NVLINK_BYTES_PER_S if len(hosts) == 1 else NDR_BYTES_PER_S
+        out[mesh.get_group(m).group_name] = (name, rate)
+    return out
 
 
 def card_envelope() -> dict:
@@ -74,45 +96,74 @@ def card_envelope() -> dict:
         "hbm_bytes_per_s": autotune.HBM_BW,
         "bf16_flops_per_s": autotune.PEAK_FLOPS[torch.bfloat16],
         "f32_flops_per_s": autotune.PEAK_FLOPS[torch.float32],
-        "link_bytes_per_s": LINK_BYTES_PER_S,
     }
 
 
-def _trace(cfg, shape):
-    """The cell's call on meta tensors, counted (`hlo.Trace`)."""
+def _trace(cfg, shape, rules=None):
+    """(the cell's call on meta tensors counted (`hlo.Trace`), its model);
+    placed by `rules` (on their mesh) when given."""
     from ..models import model as model_lib
     from ..train import optimizer as opt_lib
     from ..train.step import make_train_step
     from . import hlo, specs
 
     if shape.kind == "train":
-        model = specs.param_specs(cfg, torch.float32).requires_grad_(True)
+        model = specs.param_specs(cfg, torch.float32, rules).requires_grad_(True)
         opt = specs.opt_specs(model)
-        batch = specs.batch_specs(cfg, shape)
+        batch = specs.batch_specs(cfg, shape, rules)
         step_fn = make_train_step(cfg, opt_lib.AdamWConfig())
-        return hlo.trace(step_fn, model, opt, batch)
-    model = specs.param_specs(cfg)
+        return hlo.trace(step_fn, model, opt, batch), model
+    model = specs.param_specs(cfg, rules=rules)
     if shape.kind == "prefill":
-        tokens = specs.batch_specs(cfg, shape)["inputs"]
+        tokens = specs.batch_specs(cfg, shape, rules)["inputs"]
         return hlo.trace(lambda m, x: model_lib.prefill(m, x, cache_len=shape.seq),
-                         model, tokens)
-    cache = specs.cache_specs(cfg, shape)
-    tok, pos = specs.decode_token_specs(cfg, shape)
+                         model, tokens), model
+    cache = specs.cache_specs(cfg, shape, rules)
+    tok, pos = specs.decode_token_specs(cfg, shape, rules)
     return hlo.trace(lambda m, c, x: model_lib.decode_step(m, c, x, pos),
-                     model, cache, tok)
+                     model, cache, tok), model
+
+
+def _trace_on_mesh(cfg, shape, mesh_kind: str, device_type: str):
+    """(trace, n_devices, per-device parameter elements, {group: (axis,
+    bytes/s)}) of a cell: on one card for "card", else on the reference's
+    production mesh inside a fake world of its size."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from ..models import sharding
+    from . import mesh as mesh_lib
+
+    multi_pod, n_dev = MESHES[mesh_kind]
+    if multi_pod is None:
+        tr, model = _trace(cfg, shape)
+        return tr, 1, model, {}
+    with mesh_lib.fake_world(n_dev):
+        mesh = mesh_lib.make_production_mesh(multi_pod=multi_pod,
+                                             device_type=device_type)
+        rules = (sharding.train_rules if shape.kind == "train"
+                 else sharding.serve_rules)(mesh)
+        with sharding.axis_rules(rules), implicit_replication():
+            tr, model = _trace(cfg, shape, rules)
+        links = axis_links(mesh)
+    return tr, n_dev, model, links
 
 
 def run_cell(arch: str, shape_name, mesh_kind: str = "single", *,
-             envelope: dict = None, cfg=None) -> dict:
+             envelope: dict = None, cfg=None, device_type: str = "cuda") -> dict:
     """The record of one cell. `shape_name` names one of `configs.shapes.
-    SHAPES` or is a `Shape`; `envelope` defaults to the card's
+    SHAPES` or is a `Shape`; `mesh_kind` "single" (16 x 16), "multi"
+    (2 x 16 x 16) or "card"; `envelope` defaults to the card's
     (`card_envelope`); `cfg` to the arch's published config, with
-    REPRO_OVERRIDES applied as the reference applies them."""
+    REPRO_OVERRIDES applied as the reference applies them; `device_type`
+    is the mesh's (collectives of "cuda" meshes are NCCL's; "cpu" meshes,
+    which the CPU tests use, exchange shards by all-gathers where NCCL
+    would use an all-to-all)."""
     from .. import configs
     from ..configs.shapes import SHAPES, applicable
     from ..models import model as model_lib
 
-    _check_mesh(mesh_kind)
+    if mesh_kind not in MESHES:
+        raise ValueError(f"--mesh {mesh_kind}: one of {sorted(MESHES)}")
     env = envelope if envelope is not None else card_envelope()
     cfg = cfg if cfg is not None else configs.get(arch)
     # perf-iteration knobs without code edits, e.g.
@@ -131,7 +182,8 @@ def run_cell(arch: str, shape_name, mesh_kind: str = "single", *,
         return {"arch": arch, "shape": shape.name, "mesh": mesh_kind,
                 "skipped": True, "reason": why}
 
-    n_dev = 1
+    t0 = time.time()
+    tr, n_dev, model, links = _trace_on_mesh(cfg, shape, mesh_kind, device_type)
     rec = {
         "arch": arch, "shape": shape.name, "mesh": mesh_kind,
         "n_devices": n_dev, "kind": shape.kind,
@@ -139,8 +191,6 @@ def run_cell(arch: str, shape_name, mesh_kind: str = "single", *,
         "overrides": overrides, "remat": cfg.remat,
         **env,
     }
-    t0 = time.time()
-    tr = _trace(cfg, shape)
     rec["compile_s"] = round(time.time() - t0, 2)
 
     cost = tr.cost
@@ -150,6 +200,17 @@ def run_cell(arch: str, shape_name, mesh_kind: str = "single", *,
     rec["hbm_bytes_per_device"] = cost.hbm_bytes
     rec["collective_bytes_per_device"] = dict(cost.collective_bytes)
     rec["collective_bytes_per_device_total"] = cost.collective_total
+    by_axis = {}
+    t_coll = 0.0
+    for group, nbytes in cost.collective_groups.items():
+        axis, rate = links[group]
+        by_axis[axis] = by_axis.get(axis, 0.0) + nbytes
+        t_coll += nbytes / rate
+    rec["collective_bytes_per_device_by_axis"] = by_axis
+    rec["link_bytes_per_s_by_axis"] = {a: r for a, r in links.values()}
+    from ..models.sharding import per_device_elements
+
+    rec["param_elements_per_device"] = per_device_elements(model)
     rec["total_flops"] = cost.flops * n_dev
     rec["total_bytes"] = cost.hbm_bytes * n_dev
     rec["collective_bytes_total"] = cost.collective_total * n_dev
@@ -175,7 +236,7 @@ def run_cell(arch: str, shape_name, mesh_kind: str = "single", *,
     rec["t_compute_s"] = (cost.product_flops / env["bf16_flops_per_s"]
                           + (cost.flops - cost.product_flops) / env["f32_flops_per_s"])
     rec["t_memory_s"] = cost.hbm_bytes / env["hbm_bytes_per_s"]
-    rec["t_collective_s"] = cost.collective_total / env["link_bytes_per_s"]
+    rec["t_collective_s"] = t_coll
     dom = max(
         ("compute", rec["t_compute_s"]),
         ("memory", rec["t_memory_s"]),
@@ -199,7 +260,10 @@ def summary(rec: dict) -> str:
             f"in products), {rec['hbm_bytes_per_device']:.4e} B, peak "
             f"{rec['peak_bytes'] / 1e9:.3f} GB (fits {rec['memory_bytes'] / 1e9:.1f} GB: "
             f"{rec['fits']}), t_compute {rec['t_compute_s']:.4e} s, t_memory "
-            f"{rec['t_memory_s']:.4e} s, {rec['dominant']}; {rec['card']}, "
+            f"{rec['t_memory_s']:.4e} s, collective "
+            f"{rec['collective_bytes_per_device_total']:.4e} B "
+            f"{ {k: f'{v:.3e}' for k, v in rec['collective_bytes_per_device'].items()} } "
+            f"t_collective {rec['t_collective_s']:.4e} s, {rec['dominant']}; {rec['card']}, "
             f"{rec['power_limit']}")
 
 
@@ -207,26 +271,31 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
-    ap.add_argument("--mesh", default="single", choices=["single", "multi", "both"])
+    ap.add_argument("--mesh", default="single",
+                    choices=["single", "multi", "both", "card"])
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--skip-existing", action="store_true")
     ap.add_argument("--timeout", type=int, default=2400)
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="cells traced at once (one process each)")
     args = ap.parse_args(argv)
-    _check_mesh(args.mesh)
     ART.mkdir(parents=True, exist_ok=True)
 
     if args.all:
         from ..configs import ARCH_IDS
         from ..configs.shapes import SHAPES
 
-        cells = [(a, s, args.mesh) for a in ARCH_IDS for s in SHAPES
+        meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
+        cells = [(a, s, m) for a in ARCH_IDS for s in SHAPES for m in meshes
                  if args.arch in (None, a) and args.shape in (None, s)]
-        failures = 0
-        for a, s, m in cells:
+        # xlstm-125m's cells trace longest (the sLSTM's time loop): first
+        cells.sort(key=lambda c: c[0] != "xlstm-125m")
+
+        def one(cell):
+            a, s, m = cell
             out = cell_path(a, s, m)
             if args.skip_existing and out.exists():
-                print(f"[skip] {a} {s} {m}", flush=True)
-                continue
+                return f"[skip] {a} {s} {m}", 0
             t0 = time.time()
             try:
                 proc = subprocess.run(
@@ -238,14 +307,23 @@ def main(argv=None):
                 rc, err = proc.returncode, proc.stderr
             except subprocess.TimeoutExpired:
                 rc, err = -1, f"timed out after {args.timeout} s"
-            status = "ok" if rc == 0 else "FAIL"
             if rc != 0:
-                failures += 1
                 out.write_text(json.dumps({
                     "arch": a, "shape": s, "mesh": m, "error": True,
                     "stderr": err[-4000:],
                 }, indent=1))
-            print(f"[{status}] {a} {s} {m} ({time.time() - t0:.0f}s)", flush=True)
+            return (f"[{'ok' if rc == 0 else 'FAIL'}] {a} {s} {m} "
+                    f"({time.time() - t0:.0f}s)"), int(rc != 0)
+
+        from concurrent.futures import ThreadPoolExecutor
+
+        failures = 0
+        t_all = time.time()
+        with ThreadPoolExecutor(max(1, args.jobs)) as pool:
+            for line, failed in pool.map(one, cells):
+                failures += failed
+                print(line, flush=True)
+        print(f"all cells in {time.time() - t_all:.0f} s")
         print(f"done, failures={failures}")
         sys.exit(1 if failures else 0)
 

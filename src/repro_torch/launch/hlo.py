@@ -17,8 +17,14 @@ dispatches, the backward's included, and rolls up the reference's
   hbm_bytes        operand bytes plus result bytes of every op that is
                    not a view: the eager program's real traffic, since the
                    port runs unfused
-  collective_bytes operand bytes of every c10d collective (none on one
-                   card; the field stays)
+  collective_bytes operand bytes of every c10d collective, by the
+                   reference's kinds (`COLLECTIVE_KINDS`): on a mesh, those
+                   DTensor issues for its inputs and those the model's
+                   regions issue; none on one card
+
+On a mesh the counter lets DTensor dispatch each op (`NotImplemented`)
+and counts what it runs on this rank: the local ops on the shards and
+the collectives, so every figure is one device's (rank 0's).
 
 A Python loop is counted as it runs, so no trip count is multiplied in:
 the torch answer to the reference's while-loop problem (and the reason a
@@ -37,6 +43,7 @@ import weakref
 from typing import Any, Dict, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils import _pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -62,6 +69,18 @@ REDUCTIONS = {
 _UNWRITTEN = {"empty", "empty_like", "empty_strided", "new_empty",
               "new_empty_strided", "lift_fresh"}
 COLLECTIVE_NAMESPACES = ("_c10d_functional", "c10d")
+# the reference's collective kinds (HLO opcodes) by the functional
+# collectives that DTensor and the regions issue; the namespaces' other
+# ops (wait_tensor, ...) move nothing
+COLLECTIVE_KINDS = {
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_reduce": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "all_to_all_single": "all-to-all",
+}
 # Autograd formulas keep an out-of-place branch for tensor subclasses
 # (`areAnyTensorSubclassLike`, which holds whenever a dispatch mode is
 # active): under the counter, gather's and index's backward would add
@@ -81,6 +100,9 @@ class Cost:
     collective_bytes: Dict[str, float] = dataclasses.field(default_factory=dict)
     product_flops: float = 0.0
     ops: int = 0
+    # collective bytes by the process group they ran on (its name): which
+    # mesh axis, and so which link, carried them
+    collective_groups: Dict[str, float] = dataclasses.field(default_factory=dict)
 
     def add(self, other: "Cost", mult: float = 1.0):
         self.flops += other.flops * mult
@@ -89,6 +111,8 @@ class Cost:
         self.ops += int(other.ops * mult)
         for k, v in other.collective_bytes.items():
             self.collective_bytes[k] = self.collective_bytes.get(k, 0.0) + v * mult
+        for k, v in other.collective_groups.items():
+            self.collective_groups[k] = self.collective_groups.get(k, 0.0) + v * mult
 
     @property
     def collective_total(self) -> float:
@@ -116,7 +140,10 @@ def _is_view(func) -> bool:
 
 
 def _tensors(tree) -> list:
-    return [t for t in pytree.tree_leaves(tree) if isinstance(t, torch.Tensor)]
+    """The tensors of `tree`, a DTensor as its local shard (what this
+    rank holds)."""
+    return [t._local_tensor if isinstance(t, DTensor) else t
+            for t in pytree.tree_leaves(tree) if isinstance(t, torch.Tensor)]
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -196,6 +223,10 @@ class Counter(TorchDispatchMode):
         return {id(t.untyped_storage()) for t in _tensors(_expand_modules(tree))}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            # let DTensor run it: its local ops and the collectives it
+            # issues for its inputs come back here, on this rank's shards
+            return NotImplemented
         kwargs = kwargs or {}
         zeros, self._zeros = self._zeros, None
         if func in _IN_PLACE and zeros is not None and args[0] is zeros():
@@ -228,9 +259,14 @@ class Counter(TorchDispatchMode):
         c.flops += flops
         c.hbm_bytes += nbytes
         coll = 0
-        if func.namespace in COLLECTIVE_NAMESPACES:
+        kind = (COLLECTIVE_KINDS.get(func.overloadpacket.__name__)
+                if func.namespace in COLLECTIVE_NAMESPACES else None)
+        if kind is not None:
             coll = sum(_nbytes(t) for t in ins)
-            c.collective_bytes[name] = c.collective_bytes.get(name, 0.0) + coll
+            c.collective_bytes[kind] = c.collective_bytes.get(kind, 0.0) + coll
+            group = kwargs.get("group_name") or next(
+                (a for a in reversed(args) if isinstance(a, str)), "?")
+            c.collective_groups[group] = c.collective_groups.get(group, 0.0) + coll
         if self.attribute:
             for table, v in ((self.flops_by, flops), (self.bytes_by, nbytes),
                              (self.coll_by, coll)):

@@ -2,7 +2,10 @@
 reference's `launch/roofline.py`): artifacts/dryrun_torch/*.json into the
 dry-run and roofline tables.
 
-  python -m repro_torch.launch.roofline [--mesh single]
+  python -m repro_torch.launch.roofline [--mesh single|multi|card]
+
+`--mesh` reads the records of one of the dry run's meshes: "single" (16 x
+16), "multi" (2 x 16 x 16) or "card" (one H100, no mesh).
 
 The roofline fraction divides the model's FLOPs by the card's bf16 peak
 as the record names it (`bf16_flops_per_s`, from the card's data sheet),

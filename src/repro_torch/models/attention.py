@@ -13,11 +13,17 @@ The reference repeats K/V to the full head count on a mesh
 (`_constrained_qkv`, `gqa_broadcast`) so that attention shards on the
 q-head axis; on one card the grouped form (KV heads x G queries a head)
 computes the same numbers without the copy, and is what the port keeps.
+On a mesh the port takes the reference's branch (`_attn_mesh`): batch on
+data, q heads on model, each rank repeating K/V to its own heads where
+the KV heads do not split as the q heads do; the walk then needs no
+collective. Decode attends over the cache's time shards and reduces
+across them (`_attn_decode_mesh`).
 
-Weights are held as 2-D bf16 tensors: wq (d, H·hd), wk and wv (d, KV·hd),
-wo (H·hd, d), the biases (H·hd,) and (KV·hd,) — the reference's (d, H,
-hd) and (H, hd, d) arrays with their head axes merged; MLA's the same way
-(`MLA`).
+Weights are held as 2-D bf16 tensors on one card: wq (d, H·hd), wk and
+wv (d, KV·hd), wo (H·hd, d), the biases (H·hd,) and (KV·hd,) — the
+reference's (d, H, hd) and (H, hd, d) arrays with their head axes
+merged; MLA's the same way (`MLA`). On a mesh they are the reference's
+arrays (`sharding.shard_model`), used through `_heads` / `_merge_heads`.
 """
 from __future__ import annotations
 
@@ -27,10 +33,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torch.distributed.tensor import Partial, Replicate, Shard
+
+from . import sharding
 from .config import ModelConfig
 from .flash_vjp import NEG_INF, _scan, flash_causal
 from .layers import (COMPUTE_DTYPE, apply_rope, fanin, matmul, rms_norm,
                      stored)
+from .sharding import on_mesh
 
 
 # ===================================================================== #
@@ -100,16 +110,42 @@ def init_attn(cfg: ModelConfig, device, generator=None,
     return Attention(cfg, device, generator, param_dtype)
 
 
-def _qkv(p: Attention, x, positions, cfg: ModelConfig):
-    h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
+def _heads(x, w, n: int, hd: int):
+    """x (B, S, d) times a weight of n heads of hd -> (B, S, n, hd): the
+    port's merged (d, n·hd) weight on one card, the reference's (d, n, hd)
+    on a mesh."""
+    if on_mesh(w):
+        return sharding.einsum("bsd,dhk->bshk", x, w)
     B, S = x.shape[:2]
-    q = matmul(x, p.wq).view(B, S, h, hd)
-    k = matmul(x, p.wk).view(B, S, kv, hd)
-    v = matmul(x, p.wv).view(B, S, kv, hd)
+    return matmul(x, w).view(B, S, n, hd)
+
+
+def _merge_heads(o, w):
+    """o (B, S, n, hd) times the output weight -> (B, S, d)."""
+    if on_mesh(w):
+        return sharding.einsum("bshk,hkd->bsd", o, w)
+    B, S = o.shape[:2]
+    return matmul(o.reshape(B, S, -1), w)
+
+
+def _project(p: Attention, x, cfg: ModelConfig):
+    """q (B, S, H, hd), k and v (B, S, KV, hd) with their biases, before
+    RoPE."""
+    h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
+    q = _heads(x, p.wq, h, hd)
+    k = _heads(x, p.wk, kv, hd)
+    v = _heads(x, p.wv, kv, hd)
     if cfg.qkv_bias:
         q = q + p.bq.view(h, hd).to(q.dtype)
         k = k + p.bk.view(kv, hd).to(k.dtype)
         v = v + p.bv.view(kv, hd).to(v.dtype)
+    return q, k, v
+
+
+def _qkv(p: Attention, x, positions, cfg: ModelConfig):
+    h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
+    B, S = x.shape[:2]
+    q, k, v = _project(p, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     q = q.reshape(B, S, kv, h // kv, hd)
@@ -128,8 +164,172 @@ def _attend(q, k, v, cfg: ModelConfig) -> torch.Tensor:
 
 def attn(p: Attention, x, positions, cfg: ModelConfig):
     """Forward GQA. x: (B, S, d), positions: (B, S)."""
+    if on_mesh(p.wq):
+        return _attn_mesh(p, x, positions, cfg)[0]
     q, k, v = _qkv(p, x, positions, cfg)
     return matmul(_attend(q, k, v, cfg), p.wo)
+
+
+# ===================================================================== #
+# on a mesh
+# ===================================================================== #
+def _head_placements(q, k, cfg: ModelConfig):
+    """The reference's `gqa_broadcast` constraints of the attention walk:
+    (q's placements (batch, heads), k's and v's, their gradients', and
+    whether each rank repeats K/V to its own q heads). K/V keep their
+    heads sharded where the KV heads split as the q heads do; otherwise
+    every rank holds them whole, takes its q heads' KV heads, and their
+    gradient is partial across the heads' shards."""
+    rules = sharding.current_rules()
+    q_pl = rules.placements(q.shape, ("batch", None, "heads", None))
+    k_pl = rules.placements(k.shape, ("batch", None, "heads", None))
+    heads = [pl.is_shard(2) for pl in q_pl]
+    if [pl.is_shard(2) for pl in k_pl] == heads:
+        return q_pl, k_pl, k_pl, False
+    row = sharding.row_placements_of(q_pl)
+    grad = [Partial() if hs else r for hs, r in zip(heads, row)]
+    return q_pl, row, grad, any(heads)
+
+
+def _walk_local(q, k, v, pos, cfg: ModelConfig, mesh, repeat: bool,
+                window: int):
+    """The attention walk on one rank's shards: RoPE, then the grouped
+    walk (or, where the rank repeats K/V, the broadcast one). q (B, S, Hl,
+    hd), k and v (B, S, KVl, hd). Returns (o (B, S, Hl, hd), roped k)."""
+    B, S, Hl, hd = q.shape
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)
+    kr = k
+    if repeat:
+        g = cfg.n_heads // cfg.n_kv
+        first = sharding.coordinate(mesh, "model") * Hl
+        idx = (torch.arange(Hl, device=q.device) + first) // g
+        k, v = k[:, :, idx], v[:, :, idx]
+        q5 = q[:, :, :, None, :]
+    else:
+        kvl = k.shape[2]
+        q5 = q.reshape(B, S, kvl, Hl // kvl, hd)
+    o = chunked_causal(q5, k, v, chunk=cfg.attn_chunk, window=window,
+                       packing=cfg.causal_packing, flash=cfg.flash_backward)
+    return o.reshape(B, S, Hl, hd), kr
+
+
+def _attn_mesh(p: Attention, x, positions, cfg: ModelConfig,
+               cache_len: int = 0):
+    """GQA on a mesh: the projections through `sharding.einsum`, the walk
+    on local shards with batch on data and heads on model, which needs no
+    collective. With `cache_len` also the decode cache, placed by the
+    reference's cache spec. Returns (y, cache or None)."""
+    q, k, v = _project(p, x, cfg)
+    mesh = q.device_mesh
+    q_pl, k_pl, k_grad, repeat = _head_placements(q, k, cfg)
+    row = sharding.row_placements_of(q_pl)
+
+    def walk(ql, kl, vl, pl):
+        return _walk_local(ql, kl, vl, pl, cfg, mesh, repeat, cfg.window)
+
+    o, kr = sharding.region(walk, (q, k, v, positions), (q_pl, k_pl, k_pl, row),
+                            (q_pl, k_pl), (q_pl, k_grad, k_grad, row))
+    y = _merge_heads(o, p.wo)
+    if not cache_len:
+        return y, None
+    cache = {}
+    for name, t in (("k", kr), ("v", v.redistribute(mesh, k_pl))):
+        packed = sharding.region(lambda tl: _pack_kv(tl, cache_len, cfg.window),
+                                 (t,), (k_pl,), k_pl)
+        cache[name] = sharding.constrain(packed, "batch", "seq", "heads", "hd")
+    return y, cache
+
+
+def _time_shards(c_pl: list):
+    """The mesh dims that shard a cache's time axis (dim 1)."""
+    return [m for m, pl in enumerate(c_pl) if pl.is_shard(1)]
+
+
+def _first_slot(mesh, dims, Tl: int) -> int:
+    """The first cache slot of this rank's time shard of Tl slots."""
+    return sum(sharding.coordinate(mesh, mesh.mesh_dim_names[m])
+               for m in dims) * Tl
+
+
+def _attn_decode_mesh(p: Attention, x, cache: dict, pos: int,
+                      cfg: ModelConfig):
+    """Single-token GQA decode on a mesh. The cache is sharded as the
+    reference's spec places it — batch on data, time on model — and each
+    rank attends over its own slots (`_decode_attend`): the row max, the
+    softmax sum and the weighted values are reduced across the time
+    shards (flash-decoding), and the new entry is written by the rank
+    that holds its slot."""
+    q, k_new, v_new = _project(p, x, cfg)
+    mesh = q.device_mesh
+    c_pl = list(cache["k"].placements)
+    row = [pl if pl.is_shard(0) else Replicate() for pl in c_pl]
+    dims = _time_shards(c_pl)
+    qo_pl = list(row)
+    for m, pl in enumerate(c_pl):  # KV heads sharded: q's groups follow them
+        if pl.is_shard(2):
+            qo_pl[m] = Shard(2)
+    T = cache["k"].shape[1]
+
+    def step(ql, kn, vn, kc, vc):
+        positions = torch.full((ql.shape[0], 1), pos, dtype=torch.int32,
+                               device=ql.device)
+        ql = apply_rope(ql, positions, cfg.rope_theta)
+        kn = apply_rope(kn, positions, cfg.rope_theta)
+        return _decode_attend(ql, kn, vn, kc, vc, pos, T, cfg,
+                              _first_slot(mesh, dims, kc.shape[1]),
+                              _reducer(mesh, dims))
+
+    o = sharding.region(step, (q, k_new, v_new, cache["k"], cache["v"]),
+                        (qo_pl, qo_pl, qo_pl, c_pl, c_pl), qo_pl)
+    return _merge_heads(o, p.wo), cache
+
+
+def _reducer(mesh, dims):
+    """None where no mesh dim shards the time axis (the rank holds the
+    whole cache), else `t, op` -> `t` reduced across those dims."""
+    if not dims:
+        return None
+    return lambda t, op: sharding.seq_reduce(t, op, mesh, dims)
+
+
+def _softmax(s, reduce):
+    """softmax over the last axis of the slots `s`, whose other slots
+    other ranks hold where `reduce` is given."""
+    if reduce is None:
+        return torch.softmax(s, dim=-1)
+    m = reduce(s.amax(-1), "max")
+    e = torch.exp(s - m[..., None])
+    return e / reduce(e.sum(-1), "sum")[..., None]
+
+
+def _decode_attend(q, k_new, v_new, kc, vc, pos: int, T: int,
+                   cfg: ModelConfig, first: int = 0, reduce=None):
+    """The decode step's attention over cache slots first .. first + Tl
+    of T (the whole cache on one card; a rank's time shard on a mesh):
+    the roped new entries k_new, v_new (B, 1, KV, hd) are written into kc,
+    vc (B, Tl, KV, hd) in place where their slot lies there, and q (B, 1,
+    H, hd, roped; or grouped (B, 1, KV, G, hd)) attends with f32 scores.
+    `reduce` combines the softmax and the weighted values across the
+    time shards. Returns o (B, 1, H, hd) bf16."""
+    B, Tl, kvl, hd = kc.shape
+    slot = pos % T if cfg.window else min(pos, T - 1)
+    if first <= slot < first + Tl:
+        kc[:, slot - first] = k_new[:, 0].to(kc.dtype)
+        vc[:, slot - first] = v_new[:, 0].to(vc.dtype)
+    idx = first + torch.arange(Tl, device=kc.device)
+    valid = (idx <= pos) | (pos >= T)  # rolling buffer fully valid once warm
+    f32 = torch.float32
+    qf = q[:, 0].reshape(B, kvl, -1, hd).to(COMPUTE_DTYPE).to(f32)  # (B, KV, G, hd)
+    kf = kc.to(COMPUTE_DTYPE).to(f32).permute(0, 2, 3, 1)        # (B, KV, hd, Tl)
+    s = torch.matmul(qf, kf) * hd ** -0.5                         # (B, KV, G, Tl)
+    s = torch.where(valid, s, NEG_INF)
+    probs = _softmax(s, reduce)
+    vf = vc.to(COMPUTE_DTYPE).to(f32).permute(0, 2, 1, 3)         # (B, KV, Tl, hd)
+    o = torch.matmul(probs.to(COMPUTE_DTYPE).to(f32), vf)
+    if reduce is not None:
+        o = reduce(o, "sum")
+    return o.to(COMPUTE_DTYPE).reshape(B, 1, -1, hd)
 
 
 def attn_decode(p: Attention, x, cache: dict, pos: int, cfg: ModelConfig):
@@ -139,27 +339,14 @@ def attn_decode(p: Attention, x, cache: dict, pos: int, cfg: ModelConfig):
     min(window, T) and writes go to pos % T; for full attention to
     min(pos, T - 1). The reference returns a new cache; the port writes
     the new entries into `cache` in place and returns it."""
-    h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
+    if on_mesh(p.wq):
+        return _attn_decode_mesh(p, x, cache, pos, cfg)
     B = x.shape[0]
-    T = cache["k"].shape[1]
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q, k_new, v_new = _qkv(p, x, positions, cfg)
-    slot = pos % T if cfg.window else min(pos, T - 1)
-    cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
-    k, v = cache["k"], cache["v"]
-    idx = torch.arange(T, device=x.device)
-    valid = (idx <= pos) | (pos >= T)  # rolling buffer fully valid once warm
-    f32 = torch.float32
-    qf = q[:, 0].to(COMPUTE_DTYPE).to(f32)                   # (B, KV, G, hd)
-    kf = k.to(COMPUTE_DTYPE).to(f32).permute(0, 2, 3, 1)      # (B, KV, hd, T)
-    s = torch.matmul(qf, kf) * hd ** -0.5                     # (B, KV, G, T)
-    s = torch.where(valid, s, NEG_INF)
-    probs = torch.softmax(s, dim=-1)
-    vf = v.to(COMPUTE_DTYPE).to(f32).permute(0, 2, 1, 3)      # (B, KV, T, hd)
-    o = torch.matmul(probs.to(COMPUTE_DTYPE).to(f32), vf).to(COMPUTE_DTYPE)
-    y = matmul(o.reshape(B, 1, h * hd), p.wo)
-    return y, cache
+    o = _decode_attend(q, k_new, v_new, cache["k"], cache["v"], pos,
+                       cache["k"].shape[1], cfg)
+    return matmul(o.reshape(B, 1, -1), p.wo), cache
 
 
 def attn_cache_shape(cfg: ModelConfig, batch: int, seq: int) -> dict:
@@ -195,6 +382,8 @@ def _pack_kv(t_new: torch.Tensor, cache_len: int, window: int) -> torch.Tensor:
 
 
 def attn_prefill(p: Attention, x, positions, cfg: ModelConfig, cache_len: int):
+    if on_mesh(p.wq):
+        return _attn_mesh(p, x, positions, cfg, cache_len)
     q, k, v = _qkv(p, x, positions, cfg)
     y = matmul(_attend(q, k, v, cfg), p.wo)
     cache = {
@@ -279,7 +468,107 @@ def _mla(p: MLA, x, positions, cfg: ModelConfig):
 
 def mla(p: MLA, x, positions, cfg: ModelConfig):
     """Forward MLA (the non-absorbed form). x: (B, S, d)."""
+    if on_mesh(p.w_q):
+        return _mla_mesh(p, x, positions, cfg)[0]
     return _mla(p, x, positions, cfg)[0]
+
+
+def _mla_mesh(p: MLA, x, positions, cfg: ModelConfig, cache_len: int = 0):
+    """The non-absorbed MLA on a mesh: the products through
+    `sharding.einsum`, the walk on local shards (batch on data, heads on
+    model; the shared roped key is held whole and its gradient is partial
+    across the heads' shards). Returns (y, cache or None)."""
+    h, qn, qr, vh = cfg.n_heads, cfg.qk_nope, cfg.qk_rope, cfg.v_head
+    q = _heads(x, p.w_q, h, qn + qr)
+    ckv = rms_norm(matmul(x, p.w_dkv), p.norm_kv, cfg.norm_eps)
+    k_nope = sharding.einsum("bsl,lhk->bshk", ckv, p.w_uk)
+    v = sharding.einsum("bsl,lhk->bshk", ckv, p.w_uv)
+    kr = matmul(x, p.w_kr)
+    mesh = q.device_mesh
+    rules = sharding.current_rules()
+    q_pl = rules.placements(q.shape, ("batch", None, "heads", None))
+    row = sharding.row_placements_of(q_pl)
+    kr_grad = [Partial() if pl.is_shard(2) else r for pl, r in zip(q_pl, row)]
+
+    def walk(ql, kn, vl, krl, pl):
+        B, S, Hl, _ = ql.shape
+        q_rope = apply_rope(ql[..., qn:], pl, cfg.rope_theta)
+        k_r = apply_rope(krl[:, :, None, :], pl, cfg.rope_theta)
+        q_cat = torch.cat([ql[..., :qn], q_rope], -1)[:, :, :, None, :]
+        k_cat = torch.cat([kn, k_r.expand(B, S, Hl, qr)], -1)
+        o = chunked_causal(q_cat, k_cat, vl, chunk=cfg.attn_chunk,
+                           packing=cfg.causal_packing, scale=(qn + qr) ** -0.5,
+                           flash=cfg.flash_backward)
+        return o.reshape(B, S, Hl, vh), k_r[:, :, 0, :]
+
+    o, kr_roped = sharding.region(
+        walk, (q, k_nope, v, kr, positions), (q_pl, q_pl, q_pl, row, row),
+        (q_pl, row), (q_pl, q_pl, q_pl, kr_grad, row))
+    y = _merge_heads(o, p.w_o)
+    if not cache_len:
+        return y, None
+    cache = {}
+    for name, t in (("ckv", ckv), ("kr", kr_roped)):
+        packed = sharding.region(lambda tl: _pack_kv(tl, cache_len, 0),
+                                 (t,), (row,), row)
+        cache[name] = sharding.constrain(packed, "batch", "seq", None)
+    return y, cache
+
+
+def _mla_decode_mesh(p: MLA, x, cache: dict, pos: int, cfg: ModelConfig):
+    """The absorbed MLA decode on a mesh: q_abs and the output's w_uv
+    product through `sharding.einsum` in f32 (heads on model), the cache
+    part (`_mla_attend`) on local shards of the time axis, reduced across
+    them as in `_attn_decode_mesh`."""
+    h, qn, qr = cfg.n_heads, cfg.qk_nope, cfg.qk_rope
+    q = _heads(x, p.w_q, h, qn + qr)
+    ckv_new = rms_norm(matmul(x, p.w_dkv), p.norm_kv, cfg.norm_eps)
+    kr_new = matmul(x, p.w_kr)
+    q_abs = sharding.einsum("bhk,lhk->bhl", q[:, 0, :, :qn], p.w_uk, f32=True)
+    q_rope = q[..., qn:]
+    mesh = q.device_mesh
+    c_pl = list(cache["ckv"].placements)
+    row = [pl if pl.is_shard(0) else Replicate() for pl in c_pl]
+    dims = _time_shards(c_pl)
+    T = cache["ckv"].shape[1]
+
+    def step(qa, qrp, cn, krn, cc, kc):
+        positions = torch.full((qa.shape[0], 1), pos, dtype=torch.int32,
+                               device=qa.device)
+        q_r = apply_rope(qrp, positions, cfg.rope_theta)
+        k_r = apply_rope(krn[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
+        return _mla_attend(qa, q_r, cn, k_r, cc, kc, pos, T, cfg,
+                           _first_slot(mesh, dims, cc.shape[1]),
+                           _reducer(mesh, dims))
+
+    ctx = sharding.region(step, (q_abs, q_rope, ckv_new, kr_new, cache["ckv"],
+                                 cache["kr"]),
+                          (row, row, row, row, c_pl, c_pl), row)
+    o = sharding.einsum("bhl,lhv->bhv", ctx, p.w_uv, f32=True)
+    return _merge_heads(o.to(COMPUTE_DTYPE)[:, None], p.w_o), cache
+
+
+def _mla_attend(q_abs, q_rope, ckv_new, kr_new, cc, kc, pos: int, T: int,
+                cfg: ModelConfig, first: int = 0, reduce=None):
+    """The absorbed decode's attention over cache slots first .. first +
+    Tl of T (as `_decode_attend`): the new latents ckv_new (B, 1, kv_lora)
+    and roped kr_new (B, 1, qk_rope) written into cc, kc in place where
+    their slot min(pos, T - 1) lies there; q_abs (B, H, kv_lora) f32 and
+    the roped q_rope (B, 1, H, qk_rope) score the slots in f32. Returns
+    the f32 context (B, H, kv_lora)."""
+    Tl = cc.shape[1]
+    slot = min(pos, T - 1)
+    if first <= slot < first + Tl:
+        cc[:, slot - first] = ckv_new[:, 0].to(cc.dtype)
+        kc[:, slot - first] = kr_new[:, 0].to(kc.dtype)
+    ckv, kr = cc.float(), kc.float()                             # (B, Tl, ·)
+    s = torch.matmul(q_abs, ckv.transpose(1, 2))                 # (B, H, Tl)
+    s = s + torch.matmul(q_rope[:, 0].float(), kr.transpose(1, 2))
+    s = s * (cfg.qk_nope + cfg.qk_rope) ** -0.5
+    valid = first + torch.arange(Tl, device=cc.device) <= pos
+    s = torch.where(valid, s, NEG_INF)
+    ctx = torch.matmul(_softmax(s, reduce), ckv)                 # (B, H, lora)
+    return ctx if reduce is None else reduce(ctx, "sum")
 
 
 def mla_decode(p: MLA, x, cache: dict, pos: int, cfg: ModelConfig):
@@ -291,29 +580,18 @@ def mla_decode(p: MLA, x, cache: dict, pos: int, cfg: ModelConfig):
     kv_lora basis perturbs decode enough to flip the MoE router's top-k.
     The new entries are written into `cache` in place (slot min(pos,
     T - 1)), which is returned."""
+    if on_mesh(p.w_q):
+        return _mla_decode_mesh(p, x, cache, pos, cfg)
     B = x.shape[0]
-    h, qn, qr, vh = cfg.n_heads, cfg.qk_nope, cfg.qk_rope, cfg.v_head
+    h, qn, vh = cfg.n_heads, cfg.qk_nope, cfg.v_head
     lora = cfg.kv_lora
-    T = cache["ckv"].shape[1]
-    f32 = torch.float32
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q_nope, q_rope = _queries(p, x, positions, cfg)
     ckv_new, kr_new = _latent(p, x, positions, cfg)
-    slot = min(pos, T - 1)
-    cache["ckv"][:, slot] = ckv_new[:, 0].to(cache["ckv"].dtype)
-    cache["kr"][:, slot] = kr_new[:, 0].to(cache["kr"].dtype)
-    ckv = cache["ckv"].float()                                   # (B, T, lora)
-    kr = cache["kr"].float()                                     # (B, T, qr)
     w_uk = p.w_uk.view(lora, h, qn).permute(1, 2, 0).float()      # (H, qn, lora)
     q_abs = torch.matmul(q_nope[:, 0].float().transpose(0, 1), w_uk)  # (H, B, lora)
-    q_abs = q_abs.transpose(0, 1)                                # (B, H, lora)
-    s = torch.matmul(q_abs, ckv.transpose(1, 2))                 # (B, H, T)
-    s = s + torch.matmul(q_rope[:, 0].float(), kr.transpose(1, 2))
-    s = s * (qn + qr) ** -0.5
-    valid = torch.arange(T, device=x.device) <= pos
-    s = torch.where(valid, s, NEG_INF)
-    probs = torch.softmax(s, dim=-1)
-    ctx = torch.matmul(probs, ckv)                               # (B, H, lora)
+    ctx = _mla_attend(q_abs.transpose(0, 1), q_rope, ckv_new, kr_new,
+                      cache["ckv"], cache["kr"], pos, cache["ckv"].shape[1], cfg)
     w_uv = p.w_uv.view(lora, h, vh).transpose(0, 1)              # (H, lora, vh)
     o = torch.matmul(ctx.transpose(0, 1), w_uv).transpose(0, 1)  # (B, H, vh)
     y = matmul(o.to(COMPUTE_DTYPE).reshape(B, 1, h * vh), p.w_o)
@@ -329,6 +607,8 @@ def mla_cache_shape(cfg: ModelConfig, batch: int, seq: int) -> dict:
 
 
 def mla_prefill(p: MLA, x, positions, cfg: ModelConfig, cache_len: int):
+    if on_mesh(p.w_q):
+        return _mla_mesh(p, x, positions, cfg, cache_len)
     y, ckv, kr = _mla(p, x, positions, cfg)
     cache = {"ckv": _pack_kv(ckv, cache_len, 0), "kr": _pack_kv(kr, cache_len, 0)}
     return y, cache

@@ -10,7 +10,9 @@ stacks a unit's weights and scans it; the port keeps the same grouping
 as the order of its layer list (`models/model.py`). A copy of the
 reference's `models/config.py`: the fields and methods are the same, so
 that every config loads and reduces as it does there. The sharding knobs
-(`gqa_broadcast`, `shard_hd`) change no number on one card.
+(`gqa_broadcast`, `shard_hd`) change no number on one card; on a mesh
+`shard_hd` enters the weights' logical specs (`models/sharding`) and
+attention takes the `gqa_broadcast` form.
 """
 from __future__ import annotations
 

@@ -37,6 +37,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 COMPUTE_DTYPE = torch.bfloat16
 PARAM_DTYPE = torch.float32
@@ -112,8 +113,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 # --------------------------------------------------------------------- #
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (..., K) @ w (K, N) in the compute type with f32 sums (see the
-    module docstring), rounded once to bf16."""
+    """x (..., K) @ w (K, N), or the experts' batched (E, M, K) @ (E, K,
+    N), in the compute type with f32 sums (see the module docstring),
+    rounded once to bf16. On a mesh (w a DTensor) through
+    `sharding.einsum`."""
+    if isinstance(w, DTensor):
+        from .sharding import einsum
+
+        if w.ndim == 3:
+            return einsum("emk,ekn->emn", x, w)
+        lx = "abcdefgh"[:x.ndim - 1]
+        return einsum(f"{lx}k,kn->{lx}n", x, w)
     return torch.matmul(x.to(COMPUTE_DTYPE), w.to(COMPUTE_DTYPE))
 
 
@@ -146,10 +156,57 @@ def cross_entropy(
     logits: torch.Tensor, labels: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Stable CE in f32. logits: (B, S, V); labels: (B, S) int.
-    Returns (mean, per-token nll)."""
+    Returns (mean, per-token nll). On a mesh the vocab dim stays
+    sharded (`_cross_entropy_mesh`)."""
+    if isinstance(logits, DTensor):
+        return _cross_entropy_mesh(logits, labels)
     lf = logits.float()
     m = lf.amax(-1, keepdim=True).detach()
     lse = torch.log(torch.exp(lf - m).sum(-1)) + m[..., 0]
     gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
     nll = lse - gold
+    return nll.mean(), nll
+
+
+def _cross_entropy_mesh(logits, labels):
+    """`cross_entropy` of logits (B, S, V) sharded on the batch and, where
+    the rules shard it, the vocab: the row max and the sum of exponentials
+    are reduced across the vocab shards (an all-reduce each) and the gold
+    logit is read where its vocab shard lives, never gathering the
+    logits. Its numbers are the one-card formula's, summed in another
+    order."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from .sharding import coordinate, region
+
+    mesh = logits.device_mesh
+    lp = list(logits.placements)
+    vocab = [p.is_shard(2) for p in lp]
+    row = [Shard(0) if p.is_shard(0) else Replicate() for p in lp]
+    V = logits.shape[-1]
+    n_vocab = 1
+    for m, v in enumerate(vocab):
+        if v:
+            n_vocab *= mesh.shape[m]
+    Vl = V // n_vocab
+    lo = sum(coordinate(mesh, mesh.mesh_dim_names[m]) for m, v in enumerate(vocab)
+             if v) * Vl  # one model axis shards the vocab
+
+    mx = region(lambda l: l.float().amax(-1).detach(), (logits,), (lp,),
+                [Partial("max") if v else r for v, r in zip(vocab, row)])
+    mx = mx.redistribute(mesh, row)
+
+    def sums(l, m, lab):
+        lf = l.float()
+        se = torch.exp(lf - m[..., None]).sum(-1)
+        idx = lab.long() - lo
+        inside = (idx >= 0) & (idx < Vl)
+        gold = torch.gather(lf, -1, idx.clamp(0, Vl - 1)[..., None])[..., 0]
+        return se, torch.where(inside, gold, torch.zeros_like(gold))
+
+    part = [Partial() if v else r for v, r in zip(vocab, row)]
+    se, gold = region(sums, (logits, mx, labels), (lp, row, row), (part, part))
+    se = se.redistribute(mesh, row)
+    gold = gold.redistribute(mesh, row)
+    nll = torch.log(se) + mx - gold
     return nll.mean(), nll

@@ -22,6 +22,7 @@ Decode and prefill stay under `no_grad`.
 """
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Tuple, Union
 
 import torch
@@ -32,8 +33,10 @@ from . import attention
 from . import moe as moe_mod
 from . import recurrent, xlstm
 from .config import ModelConfig
+from . import sharding
 from .layers import (COMPUTE_DTYPE, PARAM_DTYPE, cross_entropy, init_mlp,
                      matmul, mlp, normal, rms_norm)
+from .sharding import constrain, on_mesh
 
 # mixer registry: kind -> (init, apply, decode, cache_shape, prefill)
 MIXERS = {
@@ -240,25 +243,77 @@ def _apply_block(block: Block, h, positions, cfg: ModelConfig, cache=None,
     elif ffn == "moe":
         y, aux = block.ffn(rms_norm(h, block.norm2, cfg.norm_eps), cfg)
         h = h + y
-    return h, aux, new_cache
+    return constrain(h, "batch", "seq", None), aux, new_cache
 
 
 def _embed_in(model: Model, inputs):
-    if model.cfg.frontend == "tokens":
-        return model.embed[inputs.to(model.device).long()].to(COMPUTE_DTYPE)
-    return inputs.to(model.device).to(COMPUTE_DTYPE)
+    if on_mesh(model.final_norm):
+        h = _embed_mesh(model, inputs)
+    elif model.cfg.frontend == "tokens":
+        h = model.embed[inputs.to(model.device).long()].to(COMPUTE_DTYPE)
+    else:
+        h = inputs.to(model.device).to(COMPUTE_DTYPE)
+    return constrain(h, "batch", "seq", None)
+
+
+def _embed_mesh(model: Model, inputs):
+    """The embedding on a mesh: inputs placed (batch, ...); the table's
+    data (FSDP) shard gathered, its vocab shard kept: each rank looks up
+    the ids in its vocab rows, and the rows are summed across the vocab
+    shards (one of them holds each id)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    fin = model.final_norm
+    if not on_mesh(inputs):
+        inputs = sharding.replicated(inputs.to(fin.device), fin)
+    inputs = constrain(inputs, "batch", *([None] * (inputs.ndim - 1)))
+    if model.cfg.frontend != "tokens":
+        return inputs.to(COMPUTE_DTYPE)
+    table = model.embed
+    mesh = table.device_mesh
+    row = sharding.row_placements_of(list(inputs.placements))
+    t_pl = [pl if pl.is_shard(0) else Replicate() for pl in table.placements]
+    vocab = [pl.is_shard(0) for pl in t_pl]
+    Vl = table.shape[0] // math.prod(mesh.shape[m] for m, v in enumerate(vocab) if v)
+    lo = sum(sharding.coordinate(mesh, mesh.mesh_dim_names[m])
+             for m, v in enumerate(vocab) if v) * Vl
+
+    def look(tl, ids):
+        idx = ids.long() - lo
+        inside = (idx >= 0) & (idx < tl.shape[0])
+        rows = tl[idx.clamp(0, tl.shape[0] - 1)] * inside[..., None]
+        return rows.to(COMPUTE_DTYPE)
+
+    out = [Partial() if v else r for v, r in zip(vocab, row)]
+    return sharding.region(look, (table, inputs), (t_pl, row), out,
+                           (sharding.partial_where_batch(t_pl, row), row))
 
 
 def _logits_out(model: Model, h):
     cfg = model.cfg
     h = rms_norm(h, model.final_norm, cfg.norm_eps)
     if cfg.frontend == "tokens" and cfg.tied_embeddings:
-        return matmul(h, model.embed.t())
-    return matmul(h, model.unembed)
+        logits = matmul(h, model.embed.t())
+    else:
+        logits = matmul(h, model.unembed)
+    return constrain(logits, "batch", None, "vocab")
 
 
-def _positions(B: int, S: int, device):
-    return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
+def _positions(B: int, S: int, device, like=None):
+    """The positions (B, S) int32; on a mesh (`like` a DTensor) replicated
+    on its mesh."""
+    pos = torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
+    if on_mesh(like):
+        return sharding.replicated(pos.contiguous(), like)
+    return pos
+
+
+def _zero(model: Model):
+    """The f32 scalar 0 of the aux sums, replicated on a mesh."""
+    z = torch.zeros((), dtype=torch.float32, device=model.device)
+    if on_mesh(model.final_norm):
+        return sharding.replicated(z, model.final_norm)
+    return z
 
 
 def forward(model: Model, inputs, training: bool = False
@@ -277,9 +332,9 @@ def forward(model: Model, inputs, training: bool = False
 def _forward(model: Model, inputs, remat: bool):
     cfg = model.cfg
     B, S = inputs.shape[:2]
-    positions = _positions(B, S, model.device)
+    positions = _positions(B, S, model.device, model.final_norm)
     h = _embed_in(model, inputs)
-    aux = torch.zeros((), dtype=torch.float32, device=model.device)
+    aux = _zero(model)
     for block in model.layers:
         if remat:
             h, block_aux, _ = checkpoint(_apply_block, block, h, positions,
@@ -297,7 +352,12 @@ def loss_fn(model: Model, batch: dict):
     (loss, {"ce", "aux"}), f32 scalars."""
     logits, aux = forward(model, batch["inputs"], training=True)
     labels = batch["labels"].to(logits.device)
-    ce, _ = cross_entropy(logits[:, :-1], labels[:, 1:])
+    if on_mesh(logits):
+        logits = sharding.local(lambda t: t[:, :-1], logits)
+        labels = sharding.local(lambda t: t[:, 1:], labels)
+    else:
+        logits, labels = logits[:, :-1], labels[:, 1:]
+    ce, _ = cross_entropy(logits, labels)
     return ce + aux, {"ce": ce, "aux": aux}
 
 
@@ -341,7 +401,7 @@ def prefill(model: Model, tokens, cache_len: int):
     pos = S."""
     cfg = model.cfg
     B, S = tokens.shape[:2]
-    positions = _positions(B, S, model.device)
+    positions = _positions(B, S, model.device, model.final_norm)
     h = _embed_in(model, tokens)
     caches = []
     for block in model.layers:

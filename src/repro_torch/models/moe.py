@@ -5,8 +5,8 @@ Tokens are cut into G groups (`n_groups`); inside a group each expert
 takes at most C assignments (`capacity`), in the flat token-major, then
 top-k order, and the rest are dropped. The reference chose the grouping
 to line up with its batch sharding, but it decides which tokens drop, so
-the port copies it exactly; the sharding constraints themselves change
-no number and are left out.
+the port copies it exactly. On a mesh the reference's constraints hold
+(`_moe_mesh`): groups on data, experts on model.
 
 The steps and their types follow the reference's:
 
@@ -38,6 +38,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torch.distributed.tensor import DTensor, Partial, Replicate
+
+from . import sharding
 from .config import ModelConfig
 from .layers import (COMPUTE_DTYPE, PARAM_DTYPE, fanin, init_mlp, matmul,
                      mlp, stored)
@@ -104,11 +107,18 @@ def route(p: MoE, x: torch.Tensor, cfg: ModelConfig):
     f32 renormalised, flat_e (G, Tg·k) expert ids, slot (G, Tg·k) — C
     where the assignment is dropped — and C)."""
     B, S, d = x.shape
-    k = cfg.top_k
     G = n_groups(cfg, B * S)
     Tg = B * S // G
     C = capacity(cfg, Tg)
-    logits = torch.matmul(x.reshape(G, Tg, d).float(), p.router.float())
+    return (*_route_groups(x.reshape(G, Tg, d), p.router, cfg, C), C)
+
+
+def _route_groups(xg: torch.Tensor, router: torch.Tensor, cfg: ModelConfig,
+                  C: int):
+    """`route` of the groups xg (G, Tg, d): (probs, top_w, flat_e, slot)."""
+    G, Tg, _ = xg.shape
+    k = cfg.top_k
+    logits = torch.matmul(xg.float(), router.float())
     probs = torch.softmax(logits, dim=-1)
     top_w, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
     top_w, top_i = top_w[..., :k], top_i[..., :k]
@@ -117,7 +127,7 @@ def route(p: MoE, x: torch.Tensor, cfg: ModelConfig):
     oh = F.one_hot(flat_e, cfg.n_experts)                  # (G, Tg·k, E)
     pos = torch.gather(torch.cumsum(oh, dim=1) - 1, 2, flat_e[..., None])[..., 0]
     slot = torch.where(pos < C, pos, C)
-    return probs, top_w, flat_e, slot, C
+    return probs, top_w, flat_e, slot
 
 
 @contextlib.contextmanager
@@ -148,6 +158,8 @@ def routing_trace(model: nn.Module):
 
 def moe(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) bf16 -> (out (B, S, d) bf16, aux loss () f32)."""
+    if isinstance(p.w_up, DTensor):
+        return _moe_mesh(p, x, cfg)
     B, S, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     T = B * S
@@ -179,3 +191,77 @@ def moe(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.
     ce = torch.bincount(flat_e.reshape(-1), minlength=e).float() / (T * k)
     aux = (me * ce).sum() * e * cfg.router_aux_weight
     return y, aux
+
+
+def _dispatch_local(xg, router, cfg: ModelConfig, C: int):
+    """One rank's groups xg (Gl, Tg, d): the routing, the dispatch buffer
+    (Gl, E, C, d) bf16, the combine's inputs, and the load-balance sums
+    of its tokens (probabilities by expert, assignments by expert)."""
+    Gl, Tg, d = xg.shape
+    e, k = cfg.n_experts, cfg.top_k
+    probs, top_w, flat_e, slot = _route_groups(xg, router, cfg, C)
+    g_idx = torch.arange(Gl, device=xg.device)[:, None].expand(Gl, Tg * k)
+    x_rep = xg.reshape(Gl, Tg, 1, d).expand(Gl, Tg, k, d).reshape(Gl, Tg * k, d)
+    buf = torch.zeros((e, Gl, C + 1, d), dtype=COMPUTE_DTYPE, device=xg.device)
+    buf[flat_e, g_idx, slot] = x_rep.to(COMPUTE_DTYPE)
+    counts = torch.bincount(flat_e.reshape(-1), minlength=e).float()
+    return (buf[:, :, :C].permute(1, 0, 2, 3), top_w, flat_e, slot,
+            probs.reshape(-1, e).sum(0), counts)
+
+
+def _combine_local(out_buf, top_w, flat_e, slot, cfg: ModelConfig):
+    """One rank's groups: each assignment's expert output weighted in
+    bf16, summed over k in f32 and rounded once. out_buf (Gl, E, C, d)."""
+    Gl, _, C, d = out_buf.shape
+    k = cfg.top_k
+    Tgk = flat_e.shape[1]
+    g_idx = torch.arange(Gl, device=out_buf.device)[:, None].expand(Gl, Tgk)
+    gathered = out_buf[g_idx, flat_e, torch.clamp(slot, max=C - 1)]
+    w = (top_w.reshape(Gl, Tgk) * (slot < C)).to(COMPUTE_DTYPE)
+    y = (gathered * w[..., None]).view(Gl, Tgk // k, k, d).float().sum(2)
+    return y.to(COMPUTE_DTYPE)
+
+
+def _moe_mesh(p: MoE, x, cfg: ModelConfig):
+    """The MoE on a mesh with the reference's constraints: tokens by batch,
+    then groups by `fsdp` (data); the dispatch buffer by (fsdp, exp) and
+    the expert rows by (exp, fsdp), so each rank runs its experts on its
+    groups' rows; routing and combine run on each rank's groups (the
+    router is replicated, its gradient partial across the groups'
+    shards); the load-balance loss sums its two means across them."""
+    B, S, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    T = B * S
+    G = n_groups(cfg, T)
+    Tg = T // G
+    C = capacity(cfg, Tg)
+    x = sharding.constrain(x, "batch", None, None)
+    xg = sharding.constrain(x.reshape(G, Tg, d), "fsdp", None, None)
+    g_pl = sharding.row_placements_of(list(xg.placements))
+    mesh = xg.device_mesh
+    r_pl = [pl for pl in p.router.placements]
+    part = [Partial() if (pl.is_shard() and pl.dim == 0) else pl for pl in g_pl]
+    buf, top_w, flat_e, slot, psum, counts = sharding.region(
+        lambda xl, rl: _dispatch_local(xl, rl, cfg, C), (xg, p.router),
+        (g_pl, r_pl), (g_pl, g_pl, g_pl, g_pl, part, part),
+        (g_pl, sharding.partial_where_batch(r_pl, g_pl)))
+    buf = sharding.constrain(buf, "fsdp", "exp", None, None)
+    rows = sharding.constrain(buf.transpose(0, 1).reshape(e, G * C, d),
+                              "exp", "fsdp", None)
+    g_ = matmul(rows, p.w_gate)
+    u = matmul(rows, p.w_up)
+    h = F.silu(g_.float()).to(u.dtype) * u
+    out_rows = sharding.constrain(matmul(h, p.w_down), "exp", "fsdp", None)
+    out_buf = sharding.constrain(out_rows.reshape(e, G, C, d).transpose(0, 1),
+                                 "fsdp", "exp", None, None)
+    y = sharding.region(
+        lambda ob, tw, fe, sl: _combine_local(ob, tw, fe, sl, cfg),
+        (out_buf, top_w, flat_e, slot), (g_pl, g_pl, g_pl, g_pl), g_pl)
+    y = y.reshape(B, S, d)
+    if cfg.n_shared:
+        y = y + mlp(p.shared, x)
+    whole = [Replicate()] * mesh.ndim
+    me = psum.redistribute(mesh, whole) / T
+    ce = counts.redistribute(mesh, whole) / (T * k)
+    aux = (me * ce).sum() * e * cfg.router_aux_weight
+    return sharding.constrain(y, "batch", None, None), aux

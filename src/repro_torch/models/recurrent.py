@@ -18,12 +18,17 @@ decode, as the reference does; it is stored f32.
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import Replicate, Shard
 
+from . import sharding
 from .config import ModelConfig
 from .layers import COMPUTE_DTYPE, PARAM_DTYPE, matmul, register_params
+from .sharding import on_mesh
 
 RG_LRU_C = 8.0
 
@@ -100,22 +105,77 @@ def _branches(p: RGLRU, x):
     return u, g
 
 
-def _rglru(p: RGLRU, x, cfg: ModelConfig):
-    """The block over a whole sequence: (output, u, h), h the f32 states."""
+def _core(p, u, g, cfg: ModelConfig):
+    """The conv, the gates and the scan of the branches u, g (B, S, dr):
+    (y (B, S, dr) bf16, h the f32 states). `p` holds conv_w, conv_b and
+    the gates' weights (the module, or one rank's shards of them)."""
     cw = cfg.conv_width
-    S = x.shape[1]
-    u, g = _branches(p, x)
+    S = u.shape[1]
     pad = F.pad(u, (0, 0, cw - 1, 0))
     # causal depthwise conv: bf16 taps times f32 weights, summed left to right
     conv = sum(pad[:, i:i + S] * p.conv_w[i] for i in range(cw)) + p.conv_b.to(u.dtype)
     a, b = _gates(p, conv)
     h = linear_scan(a, b)
-    y = (h * g).to(COMPUTE_DTYPE)
+    return (h * g).to(COMPUTE_DTYPE), h
+
+
+def _rglru(p: RGLRU, x, cfg: ModelConfig):
+    """The block over a whole sequence: (output, u, h), h the f32 states."""
+    u, g = _branches(p, x)
+    y, h = _core(p, u, g, cfg)
     return matmul(y, p.w_out), u, h
+
+
+# on a mesh: the conv, gates and scan run on each rank's batch rows and
+# channels (the reference's constraint (batch, None, tp)); the weights
+# they use are cut to the rank's channels, whole heads of the
+# block-diagonal gates
+_LOCAL = {"conv_w": 1, "conv_b": 0, "w_r": 0, "w_i": 0, "b_r": 0, "b_i": 0,
+          "lam": 0}
+
+
+def _mesh_layout(p: RGLRU, u, cfg: ModelConfig):
+    """(the branches' placements, the state's, the local weights'
+    placements and their gradients')."""
+    rules = sharding.current_rules()
+    mesh = u.device_mesh
+    c_pl = rules.placements(u.shape, ("batch", None, "tp"))
+    c_pl = [Replicate() if pl.is_shard(2) and cfg.n_heads % mesh.shape[m] else pl
+            for m, pl in enumerate(c_pl)]
+    h_pl = [Shard(1) if pl.is_shard(2) else pl for pl in c_pl]
+    row = sharding.row_placements_of(c_pl)
+    w_pl = [[Shard(dim) if pl.is_shard(2) else Replicate() for pl in c_pl]
+            for dim in _LOCAL.values()]
+    w_grad = [sharding.partial_where_batch(pl, row) for pl in w_pl]
+    return c_pl, h_pl, w_pl, w_grad
+
+
+def _local(ws):
+    return SimpleNamespace(**dict(zip(_LOCAL, ws)))
+
+
+def _rglru_mesh(p: RGLRU, x, cfg: ModelConfig):
+    """`_rglru` on a mesh: (output, the last state h (B, dr), the last
+    cw - 1 pre-conv inputs (B, cw - 1, dr) f32)."""
+    keep = cfg.conv_width - 1
+    u, g = _branches(p, x)
+    c_pl, h_pl, w_pl, w_grad = _mesh_layout(p, u, cfg)
+    S = u.shape[1]
+
+    def core(ul, gl, *ws):
+        y, h = _core(_local(ws), ul, gl, cfg)
+        return y, h[:, -1], ul[:, S - keep:].float()
+
+    y, h, conv = sharding.region(
+        core, (u, g, *(getattr(p, n) for n in _LOCAL)),
+        (c_pl, c_pl, *w_pl), (c_pl, h_pl, c_pl), (c_pl, c_pl, *w_grad))
+    return matmul(y, p.w_out), h, conv
 
 
 def rglru(p: RGLRU, x, positions, cfg: ModelConfig):
     """Forward. x: (B, S, d)."""
+    if on_mesh(p.w_x):
+        return _rglru_mesh(p, x, cfg)[0]
     return _rglru(p, x, cfg)[0]
 
 
@@ -128,6 +188,10 @@ def rglru_prefill(p: RGLRU, x, positions, cfg: ModelConfig, cache_len: int):
     if x.shape[1] < keep:
         raise ValueError(f"RG-LRU prefill needs at least conv_width - 1 = {keep} "
                          f"tokens to fill the conv window; got {x.shape[1]}")
+    if on_mesh(p.w_x):
+        out, h, conv = _rglru_mesh(p, x, cfg)
+        return out, {"h": sharding.constrain(h, "batch", "tp"),
+                     "conv": sharding.constrain(conv, "batch", None, "tp")}
     out, u, h = _rglru(p, x, cfg)
     return out, {"h": h[:, -1].float(), "conv": u[:, x.shape[1] - keep:].float()}
 
@@ -136,14 +200,28 @@ def rglru_decode(p: RGLRU, x, cache: dict, pos: int, cfg: ModelConfig):
     """Single-token decode. x: (B, 1, d); cache: {h: (B, dr), conv: (B,
     cw - 1, dr)}, f32, updated in place and returned."""
     u, g = _branches(p, x)
-    window = torch.cat([cache["conv"], u.float()], 1)  # (B, cw, dr), new tensor
+    if on_mesh(p.w_x):
+        c_pl, h_pl, w_pl, _ = _mesh_layout(p, u, cfg)
+        y, h, window = sharding.region(
+            lambda ul, gl, hc, cc, *ws: _step(_local(ws), ul, gl, hc, cc),
+            (u, g, cache["h"], cache["conv"], *(getattr(p, n) for n in _LOCAL)),
+            (c_pl, c_pl, h_pl, c_pl, *w_pl), (c_pl, h_pl, c_pl))
+    else:
+        y, h, window = _step(p, u, g, cache["h"], cache["conv"])
+    cache["h"].copy_(sharding.constrain(h, "batch", "tp"))
+    cache["conv"].copy_(sharding.constrain(window, "batch", None, "tp"))
+    return matmul(y, p.w_out), cache
+
+
+def _step(p, u, g, h, conv_in):
+    """One decode step of the branches u, g (B, 1, dr) from the state h
+    (B, dr) and the conv window (B, cw - 1, dr): (y (B, 1, dr) bf16, the
+    new h, the new window)."""
+    window = torch.cat([conv_in, u.float()], 1)  # (B, cw, dr), new tensor
     conv = (window * p.conv_w).sum(1) + p.conv_b
     a, b = _gates(p, conv)
-    h = a * cache["h"] + b
-    y = (h * g[:, 0]).to(COMPUTE_DTYPE)[:, None]
-    cache["h"].copy_(h)
-    cache["conv"].copy_(window[:, 1:])
-    return matmul(y, p.w_out), cache
+    h = a * h + b
+    return (h * g[:, 0]).to(COMPUTE_DTYPE)[:, None], h, window[:, 1:]
 
 
 def rglru_cache_shape(cfg: ModelConfig, batch: int, seq: int) -> dict:

@@ -21,10 +21,14 @@ every bias and the mLSTM's norm stay f32.
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import Replicate, Shard
 
+from . import sharding
 from .config import ModelConfig
 from .layers import COMPUTE_DTYPE, PARAM_DTYPE, matmul, register_params, rms_norm
 
@@ -64,24 +68,35 @@ class MLSTM(nn.Module):
 
 
 def _mlstm_qkvif(p: MLSTM, x, cfg: ModelConfig):
-    """q, k, v (B, S, nh, dh) bf16; the input gate and the log forget gate
-    (B, S, nh) f32; the output gate's pre-activation z (B, S, di) bf16."""
+    """q, k, v (B, S, nh, dh) bf16; the input and forget gates'
+    pre-activations (B, S, nh) f32 (`_gate_acts`); the output gate's
+    pre-activation z (B, S, di) bf16."""
     B, S, d = x.shape
     di = MLSTM_PF * d
     nh = cfg.n_heads
     dh = di // nh
-    up = matmul(x, p.w_up)
-    x_in, z = up[..., :di], up[..., di:]
+    x_in, z = sharding.split(matmul(x, p.w_up), [di, di])
+    x_in = sharding.constrain(x_in, "batch", None, "tp")
     q = matmul(x_in, p.wq).view(B, S, nh, dh)
     # the scale is rounded to bf16 first, as a Python float meets a bf16
     # array in the reference
     k = matmul(x_in, p.wk).view(B, S, nh, dh) * torch.tensor(
         dh ** -0.5, dtype=COMPUTE_DTYPE, device=x.device)
     v = matmul(x_in, p.wv).view(B, S, nh, dh)
-    xf = x_in.float()
-    i_pre = torch.matmul(xf, p.w_i) + p.b_i
-    f_pre = torch.matmul(xf, p.w_f) + p.b_f
-    return q, k, v, torch.exp(torch.clamp_max(i_pre, I_CLAMP)), F.logsigmoid(f_pre), z
+    if sharding.on_mesh(p.w_i):
+        i_pre = sharding.einsum("bse,eh->bsh", x_in, p.w_i, f32=True) + p.b_i
+        f_pre = sharding.einsum("bse,eh->bsh", x_in, p.w_f, f32=True) + p.b_f
+    else:
+        xf = x_in.float()
+        i_pre = torch.matmul(xf, p.w_i) + p.b_i
+        f_pre = torch.matmul(xf, p.w_f) + p.b_f
+    return q, k, v, i_pre, f_pre, z
+
+
+def _gate_acts(i_pre, f_pre):
+    """The input gate exp(min(i, I_CLAMP)) and the log forget gate
+    logsigmoid(f), f32 (applied on each rank's rows on a mesh)."""
+    return torch.exp(torch.clamp_max(i_pre, I_CLAMP)), F.logsigmoid(f_pre)
 
 
 def _mlstm_out(p: MLSTM, h, z, cfg: ModelConfig):
@@ -134,21 +149,40 @@ def mlstm_chunk(S: int) -> int:
     return Cc
 
 
-def _mlstm(p: MLSTM, x, cfg: ModelConfig):
-    """The block over a whole sequence: (output, final C, final n)."""
-    B, S, d = x.shape
-    nh = cfg.n_heads
-    dh = MLSTM_PF * d // nh
+def _mlstm_cells(q, k, v, i_pre, f_pre):
+    """The chunkwise walk of q, k, v (B, S, nh, dh) and the gates from a
+    zero state: (h (B, S, nh, dh) bf16, final C, final n)."""
+    ig, lf = _gate_acts(i_pre, f_pre)
+    B, S, nh, dh = q.shape
     Cc = mlstm_chunk(S)
-    q, k, v, ig, lf, z = _mlstm_qkvif(p, x, cfg)
-    C = torch.zeros((B, nh, dh, dh), dtype=torch.float32, device=x.device)
-    n = torch.zeros((B, nh, dh), dtype=torch.float32, device=x.device)
+    C = torch.zeros((B, nh, dh, dh), dtype=torch.float32, device=q.device)
+    n = torch.zeros((B, nh, dh), dtype=torch.float32, device=q.device)
     ys = []
     for s in range(0, S, Cc):
         c = slice(s, s + Cc)
         C, n, y = _mlstm_chunk_step(C, n, q[:, c], k[:, c], v[:, c], ig[:, c], lf[:, c])
         ys.append(y)
-    return _mlstm_out(p, torch.cat(ys, 1), z, cfg), C, n
+    return torch.cat(ys, 1), C, n
+
+
+def _mlstm(p: MLSTM, x, cfg: ModelConfig):
+    """The block over a whole sequence: (output, final C, final n). On a
+    mesh the walk runs on each rank's batch rows."""
+    mlstm_chunk(x.shape[1])
+    q, k, v, ig, lf, z = _mlstm_qkvif(p, x, cfg)
+    if sharding.on_mesh(q):
+        row = _row(q)
+        h, C, n = sharding.region(_mlstm_cells, (q, k, v, ig, lf), (row,) * 5,
+                                  (row, row, row))
+    else:
+        h, C, n = _mlstm_cells(q, k, v, ig, lf)
+    return _mlstm_out(p, h, z, cfg), C, n
+
+
+def _row(t) -> list:
+    """Placements of a tensor sharded on its batch dim alone, on `t`'s mesh
+    as the rules place the batch."""
+    return sharding.current_rules().placements(t.shape[:1], ("batch",))
 
 
 def mlstm(p: MLSTM, x, positions, cfg: ModelConfig):
@@ -159,24 +193,38 @@ def mlstm(p: MLSTM, x, positions, cfg: ModelConfig):
 def mlstm_prefill(p: MLSTM, x, positions, cfg: ModelConfig, cache_len: int):
     """Forward + the final (C, n) matrix-memory state."""
     out, C, n = _mlstm(p, x, cfg)
-    return out, {"C": C, "n": n}
+    return out, {"C": sharding.constrain(C, "batch", "heads", None, None),
+                 "n": sharding.constrain(n, "batch", "heads", None)}
 
 
 def mlstm_decode(p: MLSTM, x, cache: dict, pos: int, cfg: ModelConfig):
     """O(1) recurrent decode. cache: {C: (B, nh, dh, dh), n: (B, nh, dh)},
     f32, updated in place and returned."""
     q, k, v, ig, lf, z = _mlstm_qkvif(p, x, cfg)
+    args = (q, k, v, ig, lf, cache["C"], cache["n"])
+    if sharding.on_mesh(q):
+        row = _row(q)
+        h, C, n = sharding.region(_mlstm_step, args, (row,) * 7, (row,) * 3)
+    else:
+        h, C, n = _mlstm_step(*args)
+    cache["C"].copy_(sharding.constrain(C, "batch", "heads", None, None))
+    cache["n"].copy_(sharding.constrain(n, "batch", "heads", None))
+    return _mlstm_out(p, h, z, cfg), cache
+
+
+def _mlstm_step(q, k, v, i_pre, f_pre, C, n):
+    """The recurrent update of (C, n) by one token: (h (B, 1, nh, dh)
+    bf16, C, n)."""
+    ig, lf = _gate_acts(i_pre, f_pre)
     q, k, v = q[:, 0].float(), k[:, 0].float(), v[:, 0].float()  # (B, nh, dh)
     ig, f = ig[:, 0], torch.exp(lf[:, 0])  # (B, nh)
-    C = f[..., None, None] * cache["C"] + ig[..., None, None] * torch.einsum(
+    C = f[..., None, None] * C + ig[..., None, None] * torch.einsum(
         "bhd,bhe->bhde", k, v)
-    n = f[..., None] * cache["n"] + ig[..., None] * k
+    n = f[..., None] * n + ig[..., None] * k
     y = torch.einsum("bhd,bhde->bhe", q, C)
     denom = torch.clamp_min(torch.einsum("bhd,bhd->bh", q, n).abs(), 1.0)
     h = (y / denom[..., None])[:, None]  # (B, 1, nh, dh)
-    cache["C"].copy_(C)
-    cache["n"].copy_(n)
-    return _mlstm_out(p, h.to(COMPUTE_DTYPE), z, cfg), cache
+    return h.to(COMPUTE_DTYPE), C, n
 
 
 def mlstm_cache_shape(cfg: ModelConfig, batch: int, seq: int) -> dict:
@@ -218,9 +266,40 @@ class SLSTM(nn.Module):
 
 def _slstm_preact(p: SLSTM, x):
     """The four gates' input pre-activations W_g·x + b_g, (4, B, S, d) f32."""
+    if sharding.on_mesh(p.w_z):
+        return torch.stack([sharding.einsum("bsd,de->bse", x, getattr(p, f"w_{g}"),
+                                            f32=True) + getattr(p, f"b_{g}")
+                            for g in GATES])
     xf = x.float()
     return torch.stack([torch.matmul(xf, getattr(p, f"w_{g}")) + getattr(p, f"b_{g}")
                         for g in GATES])
+
+
+def _slstm_mesh(p: SLSTM, pre, state, cfg: ModelConfig):
+    """`_slstm_run` on a mesh: the recurrence on each rank's batch rows,
+    the recurrent matrices whole (their gradient partial across the batch
+    shards). `state` None starts from zeros. Returns (h, state)."""
+    rules = sharding.current_rules()
+    row = rules.placements(pre.shape[1:2], ("batch",))
+    pre_pl = [Shard(1) if pl.is_shard(0) else Replicate() for pl in row]
+    names = [f"r_{g}" for g in GATES]
+    r_pl = [Replicate()] * len(row)
+    r_grad = sharding.partial_where_batch(r_pl, row)
+    st = tuple(state or ())
+
+    def run(pl, *rest):
+        rs, old = rest[:4], rest[4:]
+        if not old:
+            old = (torch.zeros(pl.shape[1], cfg.d_model, dtype=torch.float32,
+                               device=pl.device),) * 4
+        h, new = _slstm_run(SimpleNamespace(**dict(zip(names, rs))), pl, old, cfg)
+        return (h, *new)
+
+    out = sharding.region(
+        run, (pre, *(getattr(p, n) for n in names), *st),
+        (pre_pl, *(r_pl,) * 4, *(row,) * len(st)), (row,) * 5,
+        (pre_pl, *(r_grad,) * 4, *(row,) * len(st)))
+    return out[0], tuple(out[1:])
 
 
 def _slstm_run(p: SLSTM, pre, state, cfg: ModelConfig):
@@ -258,14 +337,17 @@ def _slstm_run(p: SLSTM, pre, state, cfg: ModelConfig):
 def _slstm_ffn(p: SLSTM, h):
     up = matmul(h, p.w_ffn1)
     f2 = up.shape[-1] // 2
-    g, u = up[..., :f2], up[..., f2:]
+    g, u = sharding.split(up, [f2, f2])
     return matmul(F.silu(g.float()).to(u.dtype) * u, p.w_ffn2)
 
 
 def _slstm(p: SLSTM, x, cfg: ModelConfig):
     B, d = x.shape[0], cfg.d_model
-    zero = torch.zeros((B, d), dtype=torch.float32, device=x.device)
-    h, state = _slstm_run(p, _slstm_preact(p, x), (zero,) * 4, cfg)
+    if sharding.on_mesh(p.w_z):
+        h, state = _slstm_mesh(p, _slstm_preact(p, x), None, cfg)
+    else:
+        zero = torch.zeros((B, d), dtype=torch.float32, device=x.device)
+        h, state = _slstm_run(p, _slstm_preact(p, x), (zero,) * 4, cfg)
     return _slstm_ffn(p, h.to(COMPUTE_DTYPE)), state
 
 
@@ -277,16 +359,18 @@ def slstm(p: SLSTM, x, positions, cfg: ModelConfig):
 def slstm_prefill(p: SLSTM, x, positions, cfg: ModelConfig, cache_len: int):
     """Forward + the final (c, n, h, m) state."""
     out, state = _slstm(p, x, cfg)
-    return out, dict(zip(("c", "n", "h", "m"), state))
+    return out, {k: sharding.constrain(t, "batch", "tp")
+                 for k, t in zip(("c", "n", "h", "m"), state)}
 
 
 def slstm_decode(p: SLSTM, x, cache: dict, pos: int, cfg: ModelConfig):
     """Decode step. cache: {c, n, h, m: (B, d)}, f32, updated in place and
     returned."""
     names = ("c", "n", "h", "m")
-    h, state = _slstm_run(p, _slstm_preact(p, x), [cache[k] for k in names], cfg)
+    run = _slstm_mesh if sharding.on_mesh(p.w_z) else _slstm_run
+    h, state = run(p, _slstm_preact(p, x), [cache[k] for k in names], cfg)
     for k, s in zip(names, state):
-        cache[k].copy_(s)
+        cache[k].copy_(sharding.constrain(s, "batch", "tp"))
     return _slstm_ffn(p, h.to(COMPUTE_DTYPE)), cache
 
 

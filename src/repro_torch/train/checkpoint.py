@@ -15,6 +15,12 @@ arrays. Its npz keys are the reference's `jax.tree_util.keystr` paths
 (`['groups'][0]['b0']['mixer']['wq']`, `['m']['embed']`, `['step']`),
 so the two packages restore each other's checkpoints: the port writes
 its model and moments in the reference's tree (`convert.reference_tree`).
+
+On a mesh (DTensor leaves) `save` gathers each array once on every rank
+and rank 0 alone writes; every rank waits for the write. `restore`
+re-places each array on the current mesh as its template (or
+`shardings`) places it: a checkpoint written on any mesh restores on any
+other, the reference's elastic path.
 """
 from __future__ import annotations
 
@@ -28,6 +34,8 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 
 def _leaves(tree, path=""):
@@ -43,21 +51,38 @@ def _leaves(tree, path=""):
 
 
 def _host(leaf) -> np.ndarray:
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
+
+
+def _writer() -> bool:
+    """True where this process writes: rank 0 of a group, or alone."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _barrier() -> None:
+    if dist.is_initialized():
+        dist.barrier()
 
 
 def save(ckpt_dir, step: int, state: Dict[str, Any], keep_last: int = 3,
          extra: Optional[dict] = None) -> pathlib.Path:
     """state: {part name: tree}, e.g. {"params": ..., "opt": ...}."""
     ckpt_dir = pathlib.Path(ckpt_dir)
+    final = ckpt_dir / f"step_{step:08d}"
+    arrays = {name: {k: _host(v) for k, v in _leaves(tree)}
+              for name, tree in state.items()}
+    if not _writer():
+        _barrier()
+        return final
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     tmp = pathlib.Path(tempfile.mkdtemp(prefix=f".tmp-{step}-", dir=ckpt_dir))
     try:
-        for name, tree in state.items():
-            np.savez(tmp / f"{name}.npz",
-                     **{k: _host(v) for k, v in _leaves(tree)})
+        for name, host in arrays.items():
+            np.savez(tmp / f"{name}.npz", **host)
         manifest = {
             "step": step,
             "time": time.time(),
@@ -68,7 +93,6 @@ def save(ckpt_dir, step: int, state: Dict[str, Any], keep_last: int = 3,
         for f in tmp.iterdir():  # fsync before rename for crash safety
             with open(f, "rb") as fh:
                 os.fsync(fh.fileno())
-        final = ckpt_dir / f"step_{step:08d}"
         if final.exists():
             shutil.rmtree(final)
         tmp.rename(final)
@@ -76,6 +100,7 @@ def save(ckpt_dir, step: int, state: Dict[str, Any], keep_last: int = 3,
         shutil.rmtree(tmp, ignore_errors=True)
         raise
     _retain(ckpt_dir, keep_last)
+    _barrier()
     return final
 
 
@@ -94,29 +119,43 @@ def latest(ckpt_dir) -> Optional[pathlib.Path]:
     return steps[-1] if steps else None
 
 
-def _rebuild(tree, data, path=""):
+def _rebuild(tree, data, path="", like=None):
     if isinstance(tree, dict):
-        return {k: _rebuild(v, data, f"{path}[{k!r}]") for k, v in tree.items()}
+        return {k: _rebuild(v, data, f"{path}[{k!r}]",
+                            None if like is None else like[k])
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_rebuild(v, data, f"{path}[{i}]")
+        return type(tree)(_rebuild(v, data, f"{path}[{i}]",
+                                   None if like is None else like[i])
                           for i, v in enumerate(tree))
     arr = data[path]
+    like = tree if like is None else like
+    if isinstance(like, DTensor):
+        full = torch.from_numpy(np.array(arr)).to(device=like.to_local().device,
+                                                  dtype=tree.dtype)
+        return distribute_tensor(full, like.device_mesh, like.placements,
+                                 src_data_rank=None)
     if isinstance(tree, torch.Tensor):
         return torch.from_numpy(np.array(arr)).to(device=tree.device,
                                                   dtype=tree.dtype)
     return arr
 
 
-def restore(path, templates: Dict[str, Any]) -> Dict[str, Any]:
+def restore(path, templates: Dict[str, Any],
+            shardings: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
     """Restore the parts named in `templates` (trees defining structure):
     each leaf read by its keystr path; a tensor leaf gives a tensor of its
-    dtype on its device, any other leaf the stored array. The reference's
-    `shardings` argument has no counterpart on one device."""
+    dtype on its device, a DTensor leaf a DTensor placed as it is (each
+    rank reads the whole array and keeps its shard), any other leaf the
+    stored array. `shardings` (trees of the templates' structure whose
+    leaves are DTensors, by part name) places the restored arrays as its
+    leaves are placed instead: the reference's argument."""
     path = pathlib.Path(path)
     out = {}
     for name, template in templates.items():
         with np.load(path / f"{name}.npz") as data:
-            out[name] = _rebuild(template, data)
+            out[name] = _rebuild(template, data, "",
+                                 (shardings or {}).get(name))
     return out
 
 

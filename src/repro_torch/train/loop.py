@@ -15,19 +15,29 @@
 The model holds f32 master weights (`models/model.py`), drawn from one
 `torch.Generator` seeded with `loop.seed`; the reference draws from
 `jax.random.PRNGKey(loop.seed)`, so the two start from other numbers.
+
+With `rules` (`models.sharding.Rules` on a `DeviceMesh`) the loop runs as
+one rank of that mesh: every rank draws the same weights and keeps its
+shards (`sharding.shard_model`), the moments mirror them, each batch is
+placed ("batch", None), the step runs under `axis_rules`, and the
+checkpoints hold whole arrays (rank 0 writes) that restore on any mesh.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from .. import convert, obs
 from ..data import tokens as data_lib
 from ..models import model as model_lib
+from ..models import sharding
 from ..models.config import ModelConfig
 from . import checkpoint as ckpt_lib
 from . import optimizer as opt_lib
@@ -36,6 +46,25 @@ from .step import make_train_step
 
 class InjectedFailure(RuntimeError):
     pass
+
+
+def _silent(*_):
+    pass
+
+
+def _scalar(t) -> float:
+    """A scalar tensor's value (a DTensor's whole value)."""
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
+    return float(t)
+
+
+@contextlib.contextmanager
+def _mesh_context(rules):
+    """The step on a mesh: the rules in force, and a scalar made inside
+    (the schedule's, a constant) taken as replicated."""
+    with sharding.axis_rules(rules), implicit_replication():
+        yield
 
 
 @dataclasses.dataclass
@@ -78,11 +107,17 @@ def train(
     seq: int = 128,
     log_fn: Callable[[str], None] = print,
     device="cuda",
+    rules: Optional[sharding.Rules] = None,
 ) -> Dict[str, Any]:
-    """Single-device loop on `device` ("cuda" unless the caller asks for
-    the CPU; no card raises). Returns {"model", "params" (its parameters
+    """The loop on `device` ("cuda" unless the caller asks for the CPU; no
+    card raises), on one device or, with `rules`, as one rank of their
+    mesh (rank 0 alone logs). Returns {"model", "params" (its parameters
     by name), "opt", "history", "stragglers"}."""
     dev = model_lib.resolve_device(device)
+    if not ckpt_lib._writer():
+        log_fn = _silent
+    on_mesh = (contextlib.nullcontext if rules is None else
+               lambda: _mesh_context(rules))
     opt_cfg = opt_cfg or opt_lib.AdamWConfig(total_steps=loop.steps)
     data_cfg = data_lib.DataConfig(
         vocab=cfg.vocab,
@@ -96,6 +131,8 @@ def train(
     start_step = 0
     gen = torch.Generator(device=dev).manual_seed(loop.seed)
     model = model_lib.init_params(cfg, gen, dev, param_dtype=torch.float32)
+    if rules is not None:
+        sharding.shard_model(model, rules)
     model.requires_grad_(True)
     opt_state = opt_lib.init(dict(model.named_parameters()))
     last = ckpt_lib.latest(loop.ckpt_dir)
@@ -110,14 +147,16 @@ def train(
     step_times: List[float] = []
     stragglers = 0
 
-    data = data_lib.stream(data_cfg, start_step=start_step, device=dev)
+    data = data_lib.stream(data_cfg, start_step=start_step, device=dev,
+                           shardings=rules)
     for step in range(start_step, loop.steps):
         batch = next(data)
         if step == loop.fail_at_step:
             raise InjectedFailure(f"injected node failure at step {step}")
         t0 = time.perf_counter()
-        model, opt_state, metrics = step_fn(model, opt_state, batch)
-        loss = float(metrics["loss"])  # waits for the step's device work
+        with on_mesh():
+            model, opt_state, metrics = step_fn(model, opt_state, batch)
+        loss = _scalar(metrics["loss"])  # waits for the step's device work
         dt = time.perf_counter() - t0
         if not np.isfinite(loss):
             raise FloatingPointError(f"non-finite loss at step {step}")
@@ -126,7 +165,7 @@ def train(
             obs.REGISTRY.counter("train.steps").inc()
             obs.REGISTRY.gauge("train.loss").set(loss)
             obs.REGISTRY.gauge("train.grad_norm").set(
-                float(metrics["grad_norm"]))
+                _scalar(metrics["grad_norm"]))
             obs.REGISTRY.histogram("train.step_seconds", unit="s").observe(dt)
         if len(step_times) >= 5:
             med = float(np.median(step_times[-20:]))
@@ -138,7 +177,7 @@ def train(
         history.append({"step": step, "loss": loss, "dt": dt})
         if step % loop.log_every == 0:
             log_fn(f"step {step} loss {loss:.4f} "
-                   f"gnorm {float(metrics['grad_norm']):.3f} {dt * 1e3:.0f}ms")
+                   f"gnorm {_scalar(metrics['grad_norm']):.3f} {dt * 1e3:.0f}ms")
         if (step + 1) % loop.ckpt_every == 0 or step + 1 == loop.steps:
             ckpt_lib.save(
                 loop.ckpt_dir,

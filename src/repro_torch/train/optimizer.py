@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Mapping, Tuple
+from typing import Mapping, Optional, Tuple
 
 import torch
 
@@ -35,8 +35,9 @@ class AdamWConfig:
 
 
 def init(params: Mapping[str, torch.Tensor]) -> dict:
-    def zeros():
-        return {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    def zeros():  # on a mesh, placed as their parameters
+        return {n: torch.zeros_like(p, dtype=torch.float32,
+                                    memory_format=torch.contiguous_format)
                 for n, p in params.items()}
 
     device = next(iter(params.values())).device
@@ -57,20 +58,26 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum of squares of every tensor, in f32, summed tensor by
-    tensor in the given order."""
+    tensor in the given order, each in its row-major order whatever its
+    strides (a reduction follows the memory order, and autograd may lay a
+    gradient out transposed on one path and not on another)."""
     total = None
     for x in tensors:
-        sq = torch.sum(torch.square(x.to(torch.float32)))
+        sq = torch.sum(torch.square(x.to(torch.float32).contiguous()))
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 
 
 @torch.no_grad()
 def update(cfg: AdamWConfig, grads: Mapping[str, torch.Tensor], state: dict,
-           params: Mapping[str, torch.Tensor]) -> Tuple[dict, dict, dict]:
+           params: Mapping[str, torch.Tensor],
+           ndims: Optional[Mapping[str, int]] = None) -> Tuple[dict, dict, dict]:
     """One AdamW step. Returns (params, state, {"grad_norm", "lr"}); the
     parameters and moments are updated in place. No weight decay on
-    tensors of fewer than 2 dimensions (norms, biases)."""
+    tensors of fewer than 2 dimensions (norms, biases): counted in
+    `ndims` (a model's are its leaves' in the reference's tree,
+    `convert.reference_ndims`, whatever shape the port stores them in),
+    else the tensors' own."""
     gnorm = global_norm(grads[n] for n in params)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     step = state["step"] + 1
@@ -86,7 +93,7 @@ def update(cfg: AdamWConfig, grads: Mapping[str, torch.Tensor], state: dict,
         mhat = m_new / b1c
         vhat = v_new / b2c
         delta = mhat / (torch.sqrt(vhat) + cfg.eps)
-        if p.ndim >= 2:  # no weight decay on norms / biases
+        if (p.ndim if ndims is None else ndims[name]) >= 2:
             delta = delta + cfg.weight_decay * p.to(torch.float32)
         p.copy_((p.to(torch.float32) - lr * delta).to(p.dtype))
         m.copy_(m_new)

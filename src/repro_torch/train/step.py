@@ -14,6 +14,7 @@ from typing import Callable
 
 import torch
 
+from .. import convert
 from ..models import model as model_lib
 from ..models.config import ModelConfig
 from . import optimizer as opt_lib
@@ -37,8 +38,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: opt_lib.AdamWConfig,
                               *v.shape[1:]) for k, v in batch.items()}
         loss_sum = torch.zeros((), dtype=torch.float32,
                                device=model.device)
-        grads_sum = {n: torch.zeros(p.shape, dtype=torch.float32,
-                                    device=p.device)
+        grads_sum = {n: torch.zeros_like(p, dtype=torch.float32)
                      for n, p in params.items()}
         for i in range(accum_steps):
             loss, _, grads = grads_of(model, params,
@@ -57,7 +57,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: opt_lib.AdamWConfig,
             loss, metrics, grads = grads_of(model, params, batch)
             metrics = {k: v.detach() for k, v in metrics.items()}
         _, opt_state, opt_metrics = opt_lib.update(
-            opt_cfg, grads, opt_state, params)
+            opt_cfg, grads, opt_state, params, convert.reference_ndims(cfg, params))
         return model, opt_state, {"loss": loss, **metrics, **opt_metrics}
 
     return train_step

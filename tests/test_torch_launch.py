@@ -13,9 +13,10 @@ roofline,report}`) against ground truths and the reference.
     temporaries are known; gather's and index's backward writing into
     their zeros in place, as the program does without the counter;
   * `specs` allocate nothing (every tensor on the meta device);
-  * `dryrun.run_cell` gives a record for every family — dense, MoE (its
-    `bincount`, which has no meta kernel), RG-LRU, xLSTM — and kind;
-  * `--mesh multi` raises;
+  * `dryrun.run_cell` gives a record of the one-card cell ("card") for
+    every family — dense, MoE (its `bincount`, which has no meta kernel),
+    RG-LRU, xLSTM — and kind;
+  * `--mesh multi` gives a record of the 2 x 16 x 16 mesh of 512 ranks;
   * `roofline.dryrun_table` and `report.replace_section` render the
     reference's text on the same records.
 """
@@ -158,7 +159,7 @@ KINDS = (Shape("train_s", "train", 32, 2), Shape("prefill_s", "prefill", 32, 2),
 
 @pytest.fixture(scope="module")
 def records():
-    return [dryrun.run_cell(arch, shape, "single", envelope=ENV,
+    return [dryrun.run_cell(arch, shape, "card", envelope=ENV,
                             cfg=configs.get(arch).reduced())
             for arch in FAMILIES for shape in KINDS]
 
@@ -177,17 +178,22 @@ def test_run_cell_reduced_families(records, i):
     factor = 6 if shape.kind == "train" else 2
     assert rec["model_flops"] == factor * M.active_param_count(configs.get(arch).reduced()) * tokens
     assert rec["dominant"] in ("compute", "memory")
-    assert dryrun.summary(rec).startswith(f"{arch} {shape.name} single: ")
+    assert dryrun.summary(rec).startswith(f"{arch} {shape.name} card: ")
 
 
 def test_skipped_cell_and_mesh_refusal():
     rec = dryrun.run_cell("qwen2-0.5b", "long_500k", envelope=ENV)
     assert rec["skipped"] and "sub-quadratic" in rec["reason"]
-    for mesh in ("multi", "both"):
-        with pytest.raises(ValueError, match="launch/mesh"):
-            dryrun.run_cell("qwen2-0.5b", "train_4k", mesh, envelope=ENV)
-        with pytest.raises(ValueError, match="launch/mesh"):
-            dryrun.main(["--arch", "qwen2-0.5b", "--shape", "train_4k", "--mesh", mesh])
+    # the 2 x 16 x 16 mesh of 512 ranks (a fake world), reduced config
+    rec = dryrun.run_cell("qwen2-0.5b", Shape("train_s", "train", 32, 64), "multi",
+                          envelope=ENV, cfg=configs.get("qwen2-0.5b").reduced(),
+                          device_type="cpu")
+    assert rec["n_devices"] == 512 and rec["mesh"] == "multi"
+    assert rec["collective_bytes_per_device_total"] > 0
+    assert rec["total_flops"] == rec["flops_per_device"] * 512
+    assert set(rec["collective_bytes_per_device_by_axis"]) <= {"pod", "data", "model"}
+    with pytest.raises(ValueError, match="--mesh"):
+        dryrun.run_cell("qwen2-0.5b", "train_4k", "grid", envelope=ENV)
 
 
 def test_tables_and_sections_equal_reference(records):

@@ -184,6 +184,46 @@ def test_adamw_matches_reference():
                                    rtol=1e-6)
 
 
+@pytest.mark.parametrize("arch", FAMILIES[:2])
+def test_adamw_on_a_model_matches_reference(arch):
+    """Three steps of the train step's AdamW on every parameter of a
+    reduced model (its values perturbed so biases and norms are neither 0
+    nor 1) against the reference's `update` on its own tree: the decay
+    follows the reference's leaves (`convert.reference_ndims`), which
+    split the port's merged head axes and stack a scan group of several
+    layers — qwen2's biases and norms are decayed, deepseek's dense first
+    layer's norms are not."""
+    cfg, rcfg, values, _ = _family(arch)
+    rng = np.random.default_rng(5)
+    p0 = jax.tree.map(lambda a: np.asarray(a, np.float32)
+                      + 0.02 * rng.standard_normal(a.shape).astype(np.float32),
+                      values)
+    ocfg = ref_opt.AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=4)
+    ref_p, ref_update = jax.tree.map(jnp.asarray, p0), jax.jit(ref_opt.update,
+                                                              static_argnums=0)
+    ref_s = ref_opt.init(ref_p)
+    params = dict(convert.model_from_reference(
+        cfg, p0, device="cpu", param_dtype=torch.float32).named_parameters())
+    state = opt.init(params)
+    ndims = convert.reference_ndims(cfg, params)
+    assert any(params[n].ndim != d for n, d in ndims.items())
+    for step in range(3):
+        g = jax.tree.map(lambda a: rng.standard_normal(a.shape).astype(np.float32)
+                         * (3.0 if step % 2 else 0.1), values)
+        ref_p, ref_s, _ = ref_update(ocfg, jax.tree.map(jnp.asarray, g), ref_s, ref_p)
+        grads = {n: torch.zeros_like(p) for n, p in params.items()}
+        convert.load_reference_tree(cfg, grads, g)
+        params, state, _ = opt.update(opt.AdamWConfig(**dataclasses.asdict(ocfg)),
+                                      grads, state, params, ndims)
+        for got, want in ((params, ref_p), (state["m"], ref_s["m"]),
+                          (state["v"], ref_s["v"])):
+            like = {n: torch.zeros_like(p) for n, p in got.items()}
+            convert.load_reference_tree(cfg, like, jax.tree.map(np.asarray, want))
+            for n in got:
+                np.testing.assert_allclose(got[n].numpy(), like[n].numpy(),
+                                           rtol=1e-5, atol=1e-8, err_msg=n)
+
+
 def test_adamw_schedule_matches_reference():
     cfg = ref_opt.AdamWConfig(warmup_steps=10, total_steps=50)
     port_cfg = opt.AdamWConfig(**dataclasses.asdict(cfg))

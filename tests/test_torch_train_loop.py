@@ -163,10 +163,12 @@ def test_launcher_trains_on_the_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", ["--data-par", "--model-par"])
-def test_launcher_refuses_parallelism(tmp_path, flag):
-    """One device cannot show data or model parallelism: refused before
-    anything is built."""
-    with pytest.raises(ValueError, match="one device"):
+def test_launcher_refuses_parallelism(tmp_path, flag, monkeypatch):
+    """Data or model parallelism runs as one rank of a group of that many
+    ranks: without one (no torchrun) it is refused before anything is
+    built, and the message says how to start it."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
         launch_train.main(["--arch", "qwen2-0.5b", "--smoke", flag, "2",
                            "--ckpt-dir", str(tmp_path), "--device", "cpu"])
 

@@ -82,7 +82,7 @@ def main() -> int:
         model, state, met = step(model, state, batch)
     float(met["loss"])
     traced_peak = torch.cuda.max_memory_allocated()
-    rec = dryrun.run_cell(cs.TRAIN_ARCH, Shape("train_phase10", "train", S, B), "single")
+    rec = dryrun.run_cell(cs.TRAIN_ARCH, Shape("train_phase10", "train", S, B), "card")
     gaps = [(i, name, live - live0, alloc - base, (live - live0) - (alloc - base))
             for i, (name, live, alloc) in enumerate(timeline)]
     top_live = max(gaps, key=lambda x: x[2])
