@@ -1,0 +1,8 @@
+"""write.seal_ms_per_1k.updates: host ms in span.index.seal (building a
+sealed delta's points into a segment, `core/build`) per 1,000 updates
+in the window."""
+from portbench.spanreads import write_ms_per_1k
+
+
+def read(ctx):
+    return write_ms_per_1k(ctx, "index.seal")

@@ -33,7 +33,11 @@ padding the feature dim to 128 lanes instead.)
 
 Host syncs are counted on the registry (`search.host_syncs{site=...}`):
 the loop's emptiness checks, phase 1's frontier width (`nf_max`) and the
-quantized path's containment certificate.
+quantized path's containment certificate. Each frontier walk adds its
+loop iterations (`search.phase1.iters`, a multiple of `_SYNC_EVERY`),
+lanes × iterations (`search.phase1.lane_iters`: the issued work) and the
+lanes' pops (`search.phase1.visits`: the useful part, read with the
+`nf_max` sync) once, after the loop, while the registry is on.
 """
 from __future__ import annotations
 
@@ -55,6 +59,12 @@ _SYNC_EVERY = 8
 _C_SYNC = {
     site: obs.REGISTRY.counter("search.host_syncs", site=site)
     for site in ("loop", "nf_max", "quant_contained")
+}
+# phase 1's issued and useful work (frontier walks only): loop
+# iterations, lanes × iterations, and the lanes' pops (`visits`)
+_C_PHASE1 = {
+    name: obs.REGISTRY.counter(f"search.phase1.{name}")
+    for name in ("iters", "lane_iters", "visits")
 }
 
 
@@ -250,6 +260,9 @@ def _walk(dts: DeviceTree, queries, r, k: int, stack_size: int,
             push_near, d_n, stack_b.gather(1, idx1)[:, 0])[:, None])
         sp = sp1 + push_near
 
+    if collect and obs.REGISTRY.enabled:
+        _C_PHASE1["iters"].inc(it)
+        _C_PHASE1["lane_iters"].inc(lanes * it)
     return _Walk(best_sq, best_i, frontier, nf, visits, leaves, cands)
 
 
@@ -501,7 +514,12 @@ def constrained_knn_stacked_fused(
             dts, queries, rb, k, stack_size, frontier_cap
         )
         _C_SYNC["nf_max"].inc()
-        nf_max = int(nf.max()) if nf.numel() else 0
+        if obs.REGISTRY.enabled and nf.numel():
+            # the pops ride on the same device-to-host read
+            nf_max, pops = torch.stack([nf.max(), v.sum()]).tolist()
+            _C_PHASE1["visits"].inc(pops)
+        else:
+            nf_max = int(nf.max()) if nf.numel() else 0
     if nf_max > frontier_cap:
         return None
     # shrink the gather to the smallest pow2 that holds the widest

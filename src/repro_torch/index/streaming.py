@@ -34,6 +34,13 @@ epoch observed at append time and recovery fences the rebuilt log's
 epoch to at least the last durable value. The files hold numpy arrays
 and Python values only, in the reference's format: either package
 recovers the other's files.
+
+Spans (`obs.span`, host seconds and profiler ranges of one name):
+`index.add` / `index.delete` (the whole mutator, inside the writer
+lock), and nested in them `index.wal_append` (the log record),
+`index.seal` (building the sealed delta's segment) and
+`index.merge{kind=tiered|purge}` (one merge's rebuild). Their counts
+equal `index.wal_records`, `index.seals` and `index.merges{kind}`.
 """
 from __future__ import annotations
 
@@ -309,7 +316,8 @@ class StreamingIndex:
         if self._wal is not None:
             # the epoch observed at append time: the recovery fence keeps
             # Snapshot.epoch monotone across restarts
-            self._wal.append(op, _epoch=self.log.epoch, **fields)
+            with obs.span("index.wal_append"):
+                self._wal.append(op, _epoch=self.log.epoch, **fields)
             self._c_wal_records.inc()
 
     def _apply_wal_record(self, op: str, fields: dict) -> None:
@@ -331,7 +339,7 @@ class StreamingIndex:
         opaque host blob persisted with the WAL record only (it does not
         affect the index)."""
         pts = np.asarray(points, np.float32).reshape(-1, self.config.dim)
-        with self._write_lock:
+        with self._write_lock, obs.span("index.add"):
             self._wal_append("add", points=pts, meta=meta)
             # mirror the meta stream on the host (during replay too) so it
             # outlives WAL truncation through the checkpoint
@@ -383,7 +391,7 @@ class StreamingIndex:
     def delete(self, gids: np.ndarray) -> int:
         """Tombstone points by global id; returns how many were live."""
         g = np.atleast_1d(np.asarray(gids, np.int64))
-        with self._write_lock:
+        with self._write_lock, obs.span("index.delete"):
             self._wal_append("delete", gids=g)
             try:
                 grouped = self.log.pop(g)
@@ -681,7 +689,9 @@ class StreamingIndex:
         pts, gids = delta.live()
         delta = self._empty_delta()
         if len(pts):
-            self._install(segments, self._new_segment(pts, gids))
+            with obs.span("index.seal"):
+                seg = self._new_segment(pts, gids)
+            self._install(segments, seg)
             self._c_seals.inc()
             self._c_sealed_points.inc(len(pts))
         return self._maybe_compact(delta, segments)
@@ -710,13 +720,14 @@ class StreamingIndex:
             if not groups:
                 return delta, segments
             for group in groups:
-                merged = merge_segments(
-                    [segs[i] for i in group],
-                    cfg.spec,
-                    backend=cfg.backend,
-                    storage_dtype=cfg.storage_dtype,
-                    device=cfg.device,
-                )
+                with obs.span("index.merge", kind=kind):
+                    merged = merge_segments(
+                        [segs[i] for i in group],
+                        cfg.spec,
+                        backend=cfg.backend,
+                        storage_dtype=cfg.storage_dtype,
+                        device=cfg.device,
+                    )
                 for i in group:
                     del segments[uids[i]]
                 if merged is not None:

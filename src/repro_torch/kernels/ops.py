@@ -1,21 +1,18 @@
-"""Public wrappers of the kernels: device dispatch + obs billing.
+"""Public wrappers of the kernels: device dispatch.
 
 A wrapper launches the hand-written CUDA kernel when its tensors lie on
 a CUDA device and runs the kernel's plain PyTorch version when they lie
 on the CPU — the choice is made by the tensors' device alone, and a
-CUDA launch that fails raises: nothing falls back. Each call is billed
-to the obs registry (`_account`) from the CUDA kernel's own launch plan
-(`topk_l2.block_plan` / `leaf_block_plan`, `pairwise_l2.block_plan`,
-`cov_matvec.block_plan`: the grid it launches, the bytes the function
-moves, the arithmetic it does), whichever version runs. Each call also
-resolves its launch geometry through the autotuner (`autotune.
-choose_plan`, one cached decision per kernel, shape class, k, dtype and
-backend, which `decisions()` lists): `topk_l2` launches the chosen
-split; the other kernels have one plan each, recorded all the same.
-`leaf_topk_l2_raw` alone bills the quantized stream
+CUDA launch that fails raises: nothing falls back. Each call resolves
+its launch geometry through the autotuner (`autotune.choose_plan`, one
+cached decision per kernel, shape class, k, dtype and backend, which
+`decisions()` lists): `topk_l2` launches the chosen split; the other
+kernels have one plan each, recorded all the same. `leaf_topk_l2_raw`
+bills the quantized stream to the obs registry
 (`quantized.stream_bytes{dtype}`, at the candidates' storage width with
 the int8 scale, and `quantized.f32_stream_bytes{dtype}`, the same stream
-at 4 bytes an element), as the reference does.
+at 4 bytes an element, both from `topk_l2.leaf_block_plan`), as the
+reference does.
 
 Two families, as in the reference's `kernels/ops.py`:
 
@@ -70,16 +67,6 @@ def _on_cuda(t: torch.Tensor, name: str) -> bool:
     raise ValueError(f"{name}: no kernel or plain version for {t.device}")
 
 
-def _account(kernel: str, plan: dict) -> None:
-    """Bill one call to the registry: calls, bytes, FLOPs and launched
-    blocks per kernel — the inputs of a roofline report."""
-    reg = obs.REGISTRY
-    reg.counter("kernel.calls", kernel=kernel).inc()
-    reg.counter("kernel.hbm_bytes", kernel=kernel).inc(plan["hbm_bytes"])
-    reg.counter("kernel.flops", kernel=kernel).inc(plan["flops"])
-    reg.counter("kernel.blocks", kernel=kernel).inc(plan["blocks"])
-
-
 def _radius_rows(r, rows: int, device) -> torch.Tensor:
     """Scalar or per-row euclidean radius as a contiguous (rows,) f32."""
     rb = torch.as_tensor(r, dtype=torch.float32, device=device)
@@ -96,23 +83,20 @@ def _empty(rows: int, k: int, device, slots: bool):
     return out
 
 
-def _leaf_select(q, cands, cgids, rb, k: int, cscale, billed: str):
-    """Shared body of the leaf wrappers: plan, bill, then kernel or plain."""
+def _leaf_select(q, cands, cgids, rb, k: int, cscale, entry: str):
+    """Shared body of the leaf wrappers: plan, then kernel or plain."""
     rows, c, d = cands.shape
     sdt = quantize.dtype_name(cands.dtype)
     _at.choose_plan("leaf_topk_l2", rows, c, d, k, dtype=sdt,
                     backend=cands.device.type)
-    if obs.REGISTRY.enabled:
-        itemsize = cands.element_size()
-        plan = _tk.leaf_block_plan(rows, c, d, k, itemsize=itemsize)
-        _account(billed, plan)
-        if billed == "leaf_topk_l2_raw":
-            # what this call streamed at storage width, and what the same
-            # call would have streamed in f32
-            reg = obs.REGISTRY
-            reg.counter("quantized.stream_bytes", dtype=sdt).inc(plan["stream_bytes"])
-            reg.counter("quantized.f32_stream_bytes", dtype=sdt).inc(
-                _tk.leaf_block_plan(rows, c, d, k)["stream_bytes"])
+    if entry == "leaf_topk_l2_raw" and obs.REGISTRY.enabled:
+        # what this call streamed at storage width, and what the same
+        # call would have streamed in f32
+        reg = obs.REGISTRY
+        plan = _tk.leaf_block_plan(rows, c, d, k, itemsize=cands.element_size())
+        reg.counter("quantized.stream_bytes", dtype=sdt).inc(plan["stream_bytes"])
+        reg.counter("quantized.f32_stream_bytes", dtype=sdt).inc(
+            _tk.leaf_block_plan(rows, c, d, k)["stream_bytes"])
     args = (
         q.to(torch.float32).contiguous(),
         cands.contiguous(),
@@ -121,7 +105,7 @@ def _leaf_select(q, cands, cgids, rb, k: int, cscale, billed: str):
         k,
     )
     scale = cscale.to(torch.float32).contiguous() if cscale is not None else None
-    if _on_cuda(cands, billed):
+    if _on_cuda(cands, entry):
         return _tk.leaf_topk_cuda(*args, cscale=scale)
     return _tk.leaf_topk_plain(*args, cscale=scale)
 
@@ -172,8 +156,6 @@ def topk_l2(q, p, gids, r, k: int):
     rb = _radius_rows(r, m, p.device)
     d = q.shape[1]
     plan = _at.choose_plan("topk_l2", m, n, d, k, backend=p.device.type)
-    if obs.REGISTRY.enabled:
-        _account("topk_l2", _tk.block_plan(m, n, d, k))
     args = (
         q.to(torch.float32).contiguous(),
         p.to(torch.float32).contiguous(),
@@ -205,8 +187,6 @@ def pairwise_sq_l2(q, p):
     n = p.shape[0]
     _at.choose_plan("pairwise_sq_l2", m, n, d, dtype=quantize.dtype_name(q.dtype),
                     backend=p.device.type)
-    if obs.REGISTRY.enabled:
-        _account("pairwise_sq_l2", _pw.block_plan(m, n, d, q.element_size()))
     if _on_cuda(p, "pairwise_sq_l2"):
         return _pw.pairwise_cuda(q.contiguous(), p.contiguous())
     return _pw.pairwise_plain(q, p)
@@ -231,8 +211,6 @@ def cov_matvec(x, mean, w):
     n, d = x.shape
     _at.choose_plan("cov_matvec", n, d, d, dtype=quantize.dtype_name(x.dtype),
                     backend=x.device.type)
-    if obs.REGISTRY.enabled:
-        _account("cov_matvec", _cm.block_plan(n, d, x.element_size()))
     mean = mean.to(torch.float32).contiguous()
     w = w.to(torch.float32).contiguous()
     if _on_cuda(x, "cov_matvec"):

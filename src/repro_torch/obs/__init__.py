@@ -10,9 +10,11 @@ and the quantized-stream summary, and a human table).
 
 Instrumented layers: `query/engine.py` (dispatch/stack-cache
 accounting, stage spans, per-query paper metrics), `core/search.py`
-(phase spans and host-sync counts), `index/streaming.py` and
-`index/delta.py` (write-path counters, occupancy/garbage gauges), and
-`kernels/ops.py` (per-call block/bytes/FLOP accounting).
+(phase spans, host-sync counts, phase-1 iterations and lane
+occupancy), `index/streaming.py` (write-path spans and counters,
+occupancy/garbage gauges), `index/delta.py` (arena scans),
+`serve/frontend.py` (queue-wait, dispatch and respond spans, admission
+counters) and `kernels/ops.py` (the quantized stream's bytes).
 """
 from . import export, metrics, trace
 from .metrics import REGISTRY, Registry, reset, snapshot

@@ -6,6 +6,9 @@ measures host wall time into the registry histogram ``span.<name>`` and
 span names show up on the host timeline of a `torch.profiler.profile`
 trace — one vocabulary for host timing and device profiling. When the registry is disabled and no query trace is active,
 `span` is a near-free passthrough (one attribute read, no clock call).
+`observe_since(name, starts)` writes the same histogram for intervals
+that began on another thread (a request's wait in a queue): each ends
+now, on the calling thread.
 
 `QueryTrace` records one engine call end to end: the host seconds of
 each stage (plan → stack → dispatch → delta → merge) plus the
@@ -28,7 +31,7 @@ from __future__ import annotations
 import contextlib
 import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, Iterable, Optional
 
 import numpy as np
 
@@ -69,6 +72,21 @@ def span(name: str, registry: Optional[metrics.Registry] = None, **labels):
             reg.histogram(f"span.{name}", unit="s", **labels).observe(dt)
         if qt is not None:
             qt.record_stage(name, dt)
+
+
+def observe_since(name: str, starts: Iterable[float],
+                  registry: Optional[metrics.Registry] = None, **labels) -> None:
+    """Observe ``now - t`` for each `time.perf_counter()` time in
+    `starts` into histogram ``span.<name>``, the one `span` writes: an
+    interval whose start was stamped elsewhere and whose end is this
+    call. With the registry disabled: one attribute read, no clock call."""
+    reg = registry or metrics.REGISTRY
+    if not reg.enabled:
+        return
+    now = time.perf_counter()
+    h = reg.histogram(f"span.{name}", unit="s", **labels)
+    for t in starts:
+        h.observe(now - t)
 
 
 class QueryTrace:
@@ -130,4 +148,4 @@ class QueryTrace:
         return out
 
 
-__all__ = ["QueryTrace", "current_query_trace", "span"]
+__all__ = ["QueryTrace", "current_query_trace", "observe_since", "span"]

@@ -72,7 +72,15 @@ Observability (the serving-smoke + chaos acceptance surface):
   * ``serve.frontend.batch_occupancy`` — histogram of real (unpadded)
     batch sizes;
   * ``serve.frontend.latency_ms`` — submit→resolve latency histogram;
-  * ``serve.client.retries`` — client-side resubmissions.
+  * ``serve.client.retries`` — client-side resubmissions;
+  * spans (``span.<name>`` histograms, seconds; the last two are also
+    profiler ranges on the dispatcher's and the responder's threads):
+    ``serve.frontend.queue_wait`` — one per dispatched request, from
+    submit to the start of the dispatch that takes it (recorded by the
+    dispatcher, `obs.trace.observe_since`);
+    ``serve.frontend.dispatch`` — the index search of one batch;
+    ``serve.frontend.respond`` — materializing one batch's answers on
+    the host and resolving its futures.
 """
 from __future__ import annotations
 
@@ -467,6 +475,9 @@ class SearchFrontend:
             batch = self._expire(self._take_batch(first))
             if not batch:
                 continue
+            obs.trace.observe_since(
+                "serve.frontend.queue_wait", (req.t_submit for req in batch)
+            )
             n = len(batch)
             b_cls = next_pow2(n)
             qarr = np.empty((b_cls, self.index.dim), np.float32)
@@ -474,7 +485,8 @@ class SearchFrontend:
                 qarr[i] = req.vec
             qarr[n:] = batch[0].vec  # pad rows: answered, then dropped
             try:
-                res = self._search_batch(qarr)
+                with obs.span("serve.frontend.dispatch"):
+                    res = self._search_batch(qarr)
             except BaseException as e:  # fail the batch, keep serving
                 for req in batch:
                     req.future.set_exception(e)
@@ -490,17 +502,19 @@ class SearchFrontend:
             if item is _STOP:
                 return
             batch, res = item
-            # materialize once per batch (np.asarray is a no-op when the
-            # index already returned host arrays), then slice per request
-            gids = np.asarray(res.gids)
-            dists = np.asarray(res.distances)
-            partial = bool(getattr(res, "partial", False))
-            now = time.perf_counter()
-            for i, req in enumerate(batch):
-                req.future.set_result(
-                    SearchReply(gids[i], dists[i], partial)
-                )
-                self._h_latency.observe((now - req.t_submit) * 1e3)
+            with obs.span("serve.frontend.respond"):
+                # materialize once per batch (np.asarray is a no-op when
+                # the index already returned host arrays), then slice per
+                # request
+                gids = np.asarray(res.gids)
+                dists = np.asarray(res.distances)
+                partial = bool(getattr(res, "partial", False))
+                now = time.perf_counter()
+                for i, req in enumerate(batch):
+                    req.future.set_result(
+                        SearchReply(gids[i], dists[i], partial)
+                    )
+                    self._h_latency.observe((now - req.t_submit) * 1e3)
 
 
 @dataclasses.dataclass(frozen=True)
